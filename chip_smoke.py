@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Run the PyTorch/CUDA port on one NVIDIA GPU, end to end.
 
-    python3 chip_smoke.py [--seed S] [--phases device,build,k2,k1,prove[,profile]]
+    python3 chip_smoke.py [--seed S]
+        [--phases device,build,k2,k1,prove,k3,setup,prove_v1,cli[,profile]]
 
 Phases (each raises on failure, so the script exits non-zero):
   device  the card's name and power limit (nvidia-smi)
@@ -20,11 +21,32 @@ Phases (each raises on failure, so the script exits non-zero):
           kernel call of every distinct shape against its plain version on
           the same inputs; then each kernel is timed at the proof's shapes
           beside its plain version, and the two outputs must agree
-  profile (optional, after prove) one more proof under torch.profiler: the
-          kernels' device time, the device's idle share, the top kernels
+  k3      batch-major Montgomery-product kernel against its plain version,
+          bit for bit, at n = 16, 24 and 48 (random rows, the rows 0, 1 and
+          p - 1, a broadcast (n,) operand), then timed at the v1 path's
+          shapes beside its plain version
+  setup   Groth16 setup of the 16-member circuit on the card, with the rng
+          that made the committed key: all twelve query arrays of
+          artifacts/groth16_bls12_381_16.npz, beta/delta, the vk and the
+          index lists of its json must come out equal
+  prove_v1  the v1 (batch-major) prover on those keys: one warm-up proof,
+          one timed proof with the launch counts reset just before it and
+          read just after (K3 only), one proof with phase times; the proof
+          verifies, tampered ones do not, and it equals the limb-major
+          prover's proof from the committed key with the same rng state;
+          one more proof holds the first K3 call at every distinct operand
+          shape against the plain version
+  cli     python -m zkmember_tpu_torch.app.cli in subprocesses: register 16
+          members (15 through `interactive`, one through `register`),
+          `root`, `prove` (inline verification true), `verify` (exit 0) and
+          `verify` against another member's leaf (exit 1)
+  profile (optional, last) one more proof of each prover that ran (prove,
+          prove_v1) under torch.profiler: the kernels' device time, the
+          device's idle share, the top kernels
 
-Progress goes to stderr.  stdout ends with a prove line, the card line
-(nvidia-smi), one JSON "kernels" line and, last, {"ok": true, "device": ...}.
+Progress goes to stderr.  stdout ends with a prove line, a setup/prove_v1
+line, the card line (nvidia-smi), one JSON "kernels" line and, last,
+{"ok": true, "device": ...}.
 Imports nothing of JAX.  Needs one CUDA card; without one it exits 2.
 """
 
@@ -50,7 +72,9 @@ HBM_BYTES_PER_S = 3.35e12
 IMAD_PER_S = 67e12 / 4
 
 RESULTS: dict = {}
-STATE: dict = {}  # the prove phase's keys and circuit, for the profile phase
+STATE: dict = {}  # keys and circuits handed from one phase to the next
+CIRCUITS: dict = {}  # members -> (circuit, public inputs, rng state after the CRH params)
+PROVE_KERNELS = ("mont_mul", "select_reduce_fp", "select_reduce_fp2")  # prove_lm's path
 ERRS: dict = {}  # kernel -> largest limb difference from its plain version
 CHECKS: dict = {}  # kernel -> the shapes at which it was held against it
 
@@ -245,26 +269,36 @@ def phase_k1(np_rng, py_rng):
 
 
 def _membership_circuit(members: int):
-    """The 16-member registrar circuit, built exactly as bench.py builds it."""
+    """The 16-member registrar circuit, built exactly as bench.py builds it
+    (once per run), and a fresh rng in the state bench.py's setup found."""
     import random
 
-    from zkmember_tpu_torch.app import circuits as app
-    from zkmember_tpu_torch.app.member import generate_members
-    from zkmember_tpu_torch.utils import rng as frng
+    if members not in CIRCUITS:
+        from zkmember_tpu_torch.app import circuits as app
+        from zkmember_tpu_torch.app.member import generate_members
+        from zkmember_tpu_torch.utils import rng as frng
 
-    rng = frng.test_rng()
-    cfg = app.get_config("pedersen381")
-    leaf_params, node_params = cfg.setup_params(rng)
-    ms = generate_members(members)
-    digests = [m.hash(leaf_params) for m in ms]
-    tree = app.new_membership_tree(leaf_params, node_params, digests)
-    root = tree.root()
-    idx = random.Random(0).randrange(members)
-    circuit = app.MerkleTreeCircuit(
-        config=cfg, leaf_params=leaf_params, node_params=node_params,
-        root=root, leaf_hash=digests[idx], authentication_path=tree.generate_proof(idx),
-    )
-    return circuit.generate_constraints(), [root, digests[idx]], rng
+        t = time.time()
+        rng = frng.test_rng()
+        cfg = app.get_config("pedersen381")
+        leaf_params, node_params = cfg.setup_params(rng)
+        ms = generate_members(members)
+        digests = [m.hash(leaf_params) for m in ms]
+        tree = app.new_membership_tree(leaf_params, node_params, digests)
+        root = tree.root()
+        idx = random.Random(0).randrange(members)
+        circuit = app.MerkleTreeCircuit(
+            config=cfg, leaf_params=leaf_params, node_params=node_params,
+            root=root, leaf_hash=digests[idx], authentication_path=tree.generate_proof(idx),
+        )
+        cs = circuit.generate_constraints()
+        CIRCUITS[members] = (cs, [root, digests[idx]], rng.getstate())
+        STATE["leaf_params"] = leaf_params
+        log(f"{members}-member circuit built in {time.time() - t:.1f}s")
+    cs, public, state = CIRCUITS[members]
+    rng = random.Random()
+    rng.setstate(state)
+    return cs, public, rng
 
 
 def phase_prove(np_rng):
@@ -295,7 +329,7 @@ def phase_prove(np_rng):
     prove_s = time.time() - t
     launches = dict(kernels.LAUNCHES)
     log(f"timed proof in {prove_s:.3f}s; launches {launches}")
-    missing = [k for k, v in launches.items() if v == 0]
+    missing = [k for k in PROVE_KERNELS if launches[k] == 0]
     if missing:
         raise AssertionError(f"the proof launched no {missing}")
     RESULTS["prove_s"] = prove_s
@@ -322,9 +356,7 @@ def phase_prove(np_rng):
 
     # kernel times at the proof's shapes, each beside its plain version
     spec = fs.BLS_FQ
-    words = spec.n // 2
-    # CIOS: 2 N^2 32x32->64 products (2 IMADs each) and N low-word m products
-    imads_per_mul = 4 * words * words + words
+    imads_per_mul = _imads(spec)
     # one product wave of the G1 table build: 6 stacked products of 4 rows
     shape = (6 * 4, spec.n, keys.B1)
     a = rand_planes(np_rng, spec, shape)
@@ -413,14 +445,25 @@ def _bound(nbytes: float, imads: float):
 
 
 def phase_profile():
-    """One more proof under torch.profiler: the kernels' device time, the
-    device's idle share against the timed proof, and the kernels with the
-    most device time.  Not part of the default run: reading the trace of
-    ~700k launches takes minutes."""
+    """One more proof of each prover that ran (prove_lm after `prove`, the v1
+    prover after `prove_v1`) under torch.profiler: the kernels' device time,
+    the device's idle share against that prover's timed proof, and the
+    kernels with the most device time.  Not part of the default run:
+    reading a trace of ~200k launches takes minutes."""
+    from zkmember_tpu_torch.snark import groth16, prove_lm
+
+    if "keys" in STATE:
+        _profile("profile", RESULTS["prove_s"],
+                 lambda: prove_lm.prove(STATE["keys"], STATE["cs"], rng=STATE["rng"]))
+    if "pk_v1" in STATE:
+        cs, _, rng = _membership_circuit(16)
+        _profile("profile_v1", RESULTS["prove_v1_s"],
+                 lambda: groth16.prove(STATE["pk_v1"], cs, rng=rng, device="cuda"))
+
+
+def _profile(label: str, timed_s: float, fn) -> None:
     import torch
     from torch.profiler import ProfilerActivity, profile
-
-    from zkmember_tpu_torch.snark import prove_lm
 
     def dev_us(e):
         return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
@@ -428,7 +471,7 @@ def phase_profile():
     torch.cuda.synchronize()
     t = time.time()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        prove_lm.prove(STATE["keys"], STATE["cs"], rng=STATE["rng"])
+        fn()
         torch.cuda.synchronize()
     wall = time.time() - t
     kernels = [e for e in prof.key_averages()
@@ -438,17 +481,319 @@ def phase_profile():
     out = {
         "wall_s_profiled": wall, "device_kernel_s": busy,
         # against the unprofiled timed proof: the profiler slows the host, not the kernels
-        "device_idle_share": 1 - busy / RESULTS["prove_s"],
+        "device_idle_share": 1 - busy / timed_s,
         "device_kernel_launches": sum(e.count for e in kernels),
         "top_kernels": [{"name": e.key[:80], "count": e.count, "device_s": dev_us(e) / 1e6}
                         for e in top],
     }
-    print(json.dumps({"profile": out}))
-    log(f"profiled proof: wall {wall:.2f}s, kernels {busy:.3f}s on the card, "
+    print(json.dumps({label: out}))
+    log(f"{label}: wall {wall:.2f}s, kernels {busy:.3f}s on the card, "
         f"{out['device_kernel_launches']} kernel launches")
 
 
-PHASES = ("device", "build", "k2", "k1", "prove")
+# ---------------------------------------------------------------------------
+# the v1 (batch-major) slice: K3, setup, the v1 prover, the CLI
+# ---------------------------------------------------------------------------
+
+
+def rand_rows(np_rng, spec, shape):
+    """Random (..., n) int32 rows of values in [0, p); the first three rows
+    are 0, 1 and p - 1."""
+    import numpy as np
+    import torch
+
+    n = spec.n
+    limbs = np_rng.integers(0, 1 << 16, size=tuple(shape), dtype=np.int64)
+    flat = limbs.reshape(-1, n)
+    flat[:, n - 1] %= int(spec.p_limbs[-1])  # top limb below p's: value < p
+    flat[0] = 0
+    flat[1] = 0
+    flat[1, 0] = 1
+    flat[2] = spec.p_limbs.astype(np.int64)
+    flat[2, 0] -= 1
+    return torch.as_tensor(limbs, dtype=torch.int32, device="cuda")
+
+
+def mont_mul_bm_plain_rows(spec, a, b, chunk: int = 1 << 21):
+    """The plain K3 version over row chunks, joined: the int64 temporaries
+    of the widest v1 shapes do not fit the card at once."""
+    import numpy as np
+    import torch
+
+    from zkmember_tpu_torch.fields import field_cuda
+
+    shape = tuple(np.broadcast_shapes(a.shape, b.shape))
+    a2 = a.expand(shape).reshape(-1, spec.n)
+    b2 = b.expand(shape).reshape(-1, spec.n)
+    parts = [field_cuda.mont_mul_bm_plain(spec, a2[i : i + chunk], b2[i : i + chunk])
+             for i in range(0, a2.shape[0], chunk)]
+    return torch.cat(parts).reshape(shape)
+
+
+def _imads(spec) -> int:
+    """IMADs of one CIOS Montgomery product of N = n/2 words: 2 N^2 full
+    32x32->64 products (two IMADs each) and N low-word m products."""
+    words = spec.n // 2
+    return 4 * words * words + words
+
+
+def phase_k3(np_rng):
+    from zkmember_tpu_torch.fields import field_cuda, spec as fs
+
+    k3 = field_cuda.mont_mul_bm_cuda
+    for spec, rows in ((fs.BLS_FR, 8192), (fs.BLS_FQ, 65536), (fs.BW6_FQ, 4096)):
+        a = rand_rows(np_rng, spec, (rows, spec.n))
+        b = rand_rows(np_rng, spec, (rows, spec.n))
+        _hold("mont_mul_bm", f"{spec.name} ({rows}, {spec.n})", k3(spec, a, b),
+              mont_mul_bm_plain_rows(spec, a, b))
+        a3 = rand_rows(np_rng, spec, (3, rows // 4, spec.n))
+        for c in (b[2], b[1], b[5]):  # (n,) operands: p - 1, 1, a random value
+            _hold("mont_mul_bm", f"{spec.name} (3, {rows // 4}, {spec.n}) x ({spec.n},)",
+                  k3(spec, a3, c), mont_mul_bm_plain_rows(spec, a3, c))
+        tw = rand_rows(np_rng, spec, (rows // 4, spec.n))  # a twiddle table
+        _hold("mont_mul_bm", f"{spec.name} (3, {rows // 4}, {spec.n}) x ({rows // 4}, {spec.n})",
+              k3(spec, a3, tw), mont_mul_bm_plain_rows(spec, a3, tw))
+        log(f"K3 mont_mul_bm {spec.name}: bit-exact against the plain version "
+            "(random rows, 0, 1, p - 1, broadcast operands)")
+
+    # times at the v1 path's shapes: an NTT stage of the H pipeline (three
+    # stacked transforms and one), the fixed-base step's six stacked products
+    # over a 16,384-row tile, and the widest Pippenger wave (six stacked
+    # products over the (32 windows, 8192 pairs) grid)
+    timed = []
+    for spec, shape, b_shape in ((fs.BLS_FR, (8192, 16), (8192, 16)),
+                                 (fs.BLS_FR, (3, 8192, 16), (8192, 16)),
+                                 (fs.BLS_FQ, (6, 16384, 24), (6, 16384, 24)),
+                                 (fs.BLS_FQ, (6, 32, 8192, 24), (6, 32, 8192, 24))):
+        a = rand_rows(np_rng, spec, shape)
+        b = rand_rows(np_rng, spec, b_shape)
+        _hold("mont_mul_bm", f"timed {shape} x {b_shape}", k3(spec, a, b),
+              mont_mul_bm_plain_rows(spec, a, b))
+        rows = a.numel() // spec.n
+        nbytes = (a.numel() + b.numel() + a.numel()) * 4
+        timed.append({
+            "shape": list(shape), "operand_b": list(b.shape),
+            "ms": cuda_ms(lambda: k3(spec, a, b), reps=20),
+            "plain_ms": cuda_ms(lambda: mont_mul_bm_plain_rows(spec, a, b), reps=3),
+            "bound": _bound(nbytes, rows * _imads(spec)),
+        })
+        r = timed[-1]
+        log(f"K3 at {shape} x {tuple(b.shape)}: kernel {r['ms']:.4f} ms, plain "
+            f"{r['plain_ms']:.2f} ms, bound {r['bound'][0]:.4f} ms ({r['bound'][1]})")
+    RESULTS["mont_mul_bm_shapes"] = timed
+    RESULTS["mont_mul_bm"] = timed[2]  # the fixed-base / curve-op wave
+
+
+def phase_setup():
+    import numpy as np
+    import torch
+
+    from zkmember_tpu_torch import kernels
+    from zkmember_tpu_torch.snark import groth16
+    from zkmember_tpu_torch.utils import checkpoint
+    from zkmember_tpu_torch.utils import serialize as ser
+
+    cs, public, rng = _membership_circuit(16)
+    kernels.reset_launches()
+    torch.cuda.synchronize()
+    phases: dict = {}
+    t = time.time()
+    pk, vk = groth16.setup(cs, "bls12_381", rng, device="cuda", phase_times=phases)
+    setup_s = time.time() - t
+    RESULTS["launches_setup"] = dict(kernels.LAUNCHES)
+    if RESULTS["launches_setup"]["mont_mul_bm"] == 0:
+        raise AssertionError("setup launched no mont_mul_bm")
+    RESULTS["setup"] = {"setup_s": setup_s, **phases}
+    log(f"setup in {setup_s:.2f}s (phases synchronized): " + ", ".join(
+        f"{k} {v:.3f}s" for k, v in phases.items())
+        + f"; K3 launches {RESULTS['launches_setup']['mont_mul_bm']}")
+
+    ck = os.path.join(REPO, "artifacts", "groth16_bls12_381_16")
+    got = checkpoint.query_arrays(pk)
+    with np.load(ck + ".npz") as data:
+        want = {k: data[k] for k in data.files}
+    if sorted(got) != sorted(want) or len(want) != 12:
+        raise AssertionError(f"query arrays {sorted(got)} differ from the checkpoint's {sorted(want)}")
+    for k in sorted(want):
+        if got[k].shape != want[k].shape or not np.array_equal(got[k], want[k]):
+            raise AssertionError(f"setup's {k} differs from the checkpoint's")
+    with open(ck + ".json") as f:
+        meta = json.load(f)
+    g1 = groth16.pairing_config("bls12_381").mod.G1
+    mine = {
+        "beta_g1": ser.sw_point_to_bytes(g1, pk.beta_g1).hex(),
+        "delta_g1": ser.sw_point_to_bytes(g1, pk.delta_g1).hex(),
+        "vk": ser.vk_to_bytes(vk).hex(),
+        "a_nonzero": pk.a_nonzero, "b_nonzero": pk.b_nonzero, "l_nonzero": pk.l_nonzero,
+        "domain_size": pk.domain_size, "num_instance": pk.num_instance,
+    }
+    for k, v in mine.items():
+        if meta[k] != v:
+            raise AssertionError(f"setup's {k} differs from the checkpoint's")
+    log("setup reproduces the committed key: all 12 query arrays limb for limb, "
+        "beta_g1, delta_g1, vk and the index lists")
+    STATE.update(pk_v1=pk)
+
+
+def checked_v1_proof(pk, cs, rng):
+    """One v1 proof in which the first K3 call at every distinct operand
+    shape is held against the plain version on the same inputs (its
+    launches are outside the counted proof)."""
+    from zkmember_tpu_torch.fields import field_cuda
+    from zkmember_tpu_torch.snark import groth16
+
+    k3 = field_cuda.mont_mul_bm_cuda
+    seen = set()
+
+    def checked(spec, a, b):
+        out = k3(spec, a, b)
+        key = (spec.name, tuple(a.shape), tuple(b.shape))
+        if key not in seen:
+            seen.add(key)
+            _hold("mont_mul_bm", f"v1 proof {spec.name} {key[1]} x {key[2]}", out,
+                  mont_mul_bm_plain_rows(spec, a, b))
+        return out
+
+    field_cuda.mont_mul_bm_cuda = checked
+    try:
+        t = time.time()
+        proof = groth16.prove(pk, cs, rng=rng, device="cuda")
+    finally:
+        field_cuda.mont_mul_bm_cuda = k3
+    log(f"checked v1 proof in {time.time() - t:.1f}s: K3 bit-exact at {len(seen)} "
+        "distinct operand shapes")
+    return proof
+
+
+def phase_prove_v1():
+    import torch
+
+    from zkmember_tpu_torch import kernels
+    from zkmember_tpu_torch.snark import groth16, prove_lm
+    from zkmember_tpu_torch.utils import checkpoint
+
+    cs, public, rng = _membership_circuit(16)
+    if "pk_v1" not in STATE:
+        raise AssertionError("prove_v1 needs the setup phase before it")
+    pk = STATE["pk_v1"]
+    vk = pk.vk
+    t = time.time()
+    groth16.prove(pk, cs, rng=rng, device="cuda")
+    log(f"warm-up v1 proof in {time.time() - t:.2f}s")
+
+    state = rng.getstate()
+    kernels.reset_launches()
+    torch.cuda.synchronize()
+    t = time.time()
+    proof = groth16.prove(pk, cs, rng=_rng_at(state), device="cuda")
+    prove_s = time.time() - t
+    launches = dict(kernels.LAUNCHES)
+    log(f"timed v1 proof in {prove_s:.3f}s; launches {launches}")
+    if launches["mont_mul_bm"] == 0:
+        raise AssertionError("the v1 proof launched no mont_mul_bm")
+    if any(launches[k] for k in PROVE_KERNELS):
+        raise AssertionError(f"the v1 proof launched limb-major kernels: {launches}")
+    RESULTS["prove_v1_s"] = prove_s
+    RESULTS["launches_v1"] = launches
+    phases: dict = {}
+    t = time.time()
+    groth16.prove(pk, cs, rng=_rng_at(state), device="cuda", phase_times=phases)
+    RESULTS["breakdown_v1"] = {"total_s": time.time() - t, **phases}
+    log("phases of a v1 proof synchronized at each phase: " + ", ".join(
+        f"{k} {v:.3f}s" for k, v in RESULTS["breakdown_v1"].items()))
+
+    if not groth16.verify(vk, public, proof):
+        raise AssertionError("the v1 proof does not verify")
+    g1 = groth16.pairing_config("bls12_381").mod.G1
+    bad_c = groth16.Proof(curve=proof.curve, a=proof.a, b=proof.b, c=g1.neg(proof.c))
+    if groth16.verify(vk, public, bad_c):
+        raise AssertionError("a v1 proof with C negated verifies")
+    if groth16.verify(vk, [public[0], (public[1] + 1) % g1.order], proof):
+        raise AssertionError("the v1 proof verifies for a wrong leaf")
+    keys = STATE.get("keys") or checkpoint.load_groth16_keys(
+        os.path.join(REPO, "artifacts", "groth16_bls12_381_16"), device="cuda")
+    lm_proof = prove_lm.prove(keys, cs, rng=_rng_at(state))
+    if (lm_proof.a, lm_proof.b, lm_proof.c) != (proof.a, proof.b, proof.c):
+        raise AssertionError("the v1 proof differs from the limb-major prover's with the "
+                             "same keys and rng state")
+    if not groth16.verify(keys.pk.vk, public, lm_proof):
+        raise AssertionError("the limb-major proof does not verify")
+    log("v1 proof verifies, negated C and a wrong leaf are rejected, and it equals "
+        "prove_lm's proof from the committed key with the same rng state")
+    checked = checked_v1_proof(pk, cs, _rng_at(state))
+    if (checked.a, checked.b, checked.c) != (proof.a, proof.b, proof.c):
+        raise AssertionError("the checked v1 proof differs from the timed one")
+
+
+def _rng_at(state):
+    import random
+
+    rng = random.Random()
+    rng.setstate(state)
+    return rng
+
+
+def _cli(args, env, cwd, stdin=None, want_rc=0):
+    t = time.time()
+    res = subprocess.run(
+        [sys.executable, "-m", "zkmember_tpu_torch.app.cli", *args], input=stdin,
+        capture_output=True, text=True, env=env, cwd=cwd, timeout=900,
+    )
+    log(f"cli {args[0]}: exit {res.returncode} in {time.time() - t:.1f}s")
+    if res.returncode != want_rc:
+        raise AssertionError(f"cli {args} exited {res.returncode}, expected {want_rc}:\n"
+                             f"{res.stdout[-2000:]}\n{res.stderr[-4000:]}")
+    return res.stdout
+
+
+def _cli_value(out: str, label: str) -> str:
+    import re
+
+    plain = re.sub(r"\x1b\[[0-9;]*m", "", out)
+    for line in plain.splitlines():
+        if line.startswith(label):
+            return line[len(label):].strip()
+    raise AssertionError(f"cli output has no {label!r} line:\n{plain[-2000:]}")
+
+
+def phase_cli():
+    import tempfile
+
+    from zkmember_tpu_torch.app.member import Member
+
+    t0 = time.time()
+    with tempfile.TemporaryDirectory(dir=REPO, prefix=".cli_") as tmp:
+        env = dict(os.environ, PYTHONPATH=REPO, ZKMEMBER_STATE=os.path.join(tmp, "state.json"))
+        stdin = "".join(f"1\n{i}\n{i}@usc.edu\n" for i in range(1, 16)) + "q\n"
+        _cli(["interactive"], env, tmp, stdin=stdin)
+        out = _cli(["register", "--id", "16", "--email", "16@usc.edu"], env, tmp)
+        if _cli_value(out, "Number of Members:") != "16":
+            raise AssertionError(f"the registrar does not hold 16 members:\n{out}")
+        root = int(_cli_value(out, "Merkle Root:"), 16)
+        if int(_cli(["root"], env, tmp).strip(), 16) != root:
+            raise AssertionError("`root` differs from the root `register` printed")
+        out = _cli(["prove", "--id", "5"], env, tmp)
+        if _cli_value(out, "Inline verification:") != "True":
+            raise AssertionError(f"prove's inline verification failed:\n{out}")
+        leaf, proof, vk = (_cli_value(out, k) for k in ("Leaf:", "Proof:", "VK:"))
+        if int(_cli_value(out, "Root:"), 16) != root:
+            raise AssertionError("prove used another root")
+        _cli(["verify", "--root", hex(root), "--leaf", leaf, "--proof", proof, "--vk", vk],
+             env, tmp)
+        with open(env["ZKMEMBER_STATE"]) as f:
+            other = Member.from_json(json.dumps(json.load(f)[5]))  # member "6"
+        _membership_circuit(16)  # the CRH parameters
+        other_leaf = hex(other.hash(STATE["leaf_params"]))
+        if int(other_leaf, 16) == int(leaf, 16):
+            raise AssertionError("two members share a leaf")
+        _cli(["verify", "--root", hex(root), "--leaf", other_leaf, "--proof", proof,
+              "--vk", vk], env, tmp, want_rc=1)
+    RESULTS["cli_s"] = time.time() - t0
+    log(f"cli: 16 members registered, prove verified inline, verify accepts the proof "
+        f"and rejects another member's leaf ({RESULTS['cli_s']:.1f}s)")
+
+
+PHASES = ("device", "build", "k2", "k1", "prove", "k3", "setup", "prove_v1", "cli")
 
 
 def main() -> int:
@@ -482,6 +827,14 @@ def main() -> int:
             phase_k1(np_rng, py_rng)
         elif name == "prove":
             phase_prove(np_rng)
+        elif name == "k3":
+            phase_k3(np_rng)
+        elif name == "setup":
+            phase_setup()
+        elif name == "prove_v1":
+            phase_prove_v1()
+        elif name == "cli":
+            phase_cli()
         elif name == "profile":
             phase_profile()
         else:
@@ -497,6 +850,15 @@ def main() -> int:
             "device": RESULTS["device"],
             "nvidia_smi": RESULTS["smi"],
         }))
+        print(json.dumps({
+            "metric": "groth16_bls12_381_setup_prove_v1_16members",
+            "setup_s": RESULTS["setup"], "prove_v1_s": RESULTS["prove_v1_s"],
+            "phases_s": RESULTS["breakdown_v1"], "cli_s": RESULTS["cli_s"],
+            "mont_mul_bm_launches": {"setup": RESULTS["launches_setup"]["mont_mul_bm"],
+                                     "prove_v1": RESULTS["launches_v1"]["mont_mul_bm"]},
+            "mont_mul_bm_shapes": RESULTS["mont_mul_bm_shapes"],
+            "device": RESULTS["device"], "nvidia_smi": RESULTS["smi"],
+        }))
         print(RESULTS["smi"])
         sources = {
             "mont_mul": ("zkmember_tpu_torch/csrc/mont_mul.cu",
@@ -505,14 +867,19 @@ def main() -> int:
                                  "zkmember_tpu/msm/pallas_msm.py:268"),
             "select_reduce_fp2": ("zkmember_tpu_torch/csrc/select_reduce.cu",
                                   "zkmember_tpu/msm/pallas_msm.py:268"),
+            "mont_mul_bm": ("zkmember_tpu_torch/csrc/mont_mul_bm.cu",
+                            "zkmember_tpu/fields/pallas_field.py:279"),
         }
         rows = []
         for name in kernels.LAUNCHES:
             src, rep = sources[name]
             r = RESULTS[name]
+            # launches of the path that runs the kernel: prove_lm's timed
+            # proof for K1/K2, the v1 timed proof for K3
+            runs = RESULTS["launches" if name in PROVE_KERNELS else "launches_v1"]
             rows.append({
                 "name": name, "route": "cuda", "source": src, "replaces": rep,
-                "launches": RESULTS["launches"][name], "max_abs_err": ERRS[name],
+                "launches": runs[name], "max_abs_err": ERRS[name],
                 "check": f"bit-exact against the plain version at {len(CHECKS[name])} "
                          "shapes, every shape of one proof among them",
                 "ms": r["ms"], "plain_ms": r["plain_ms"],

@@ -16,7 +16,7 @@ import torch
 
 from zkmember_tpu_torch import kernels
 from zkmember_tpu_torch.curves import bls12_381 as bls
-from zkmember_tpu_torch.fields import lm_cuda, spec as fs
+from zkmember_tpu_torch.fields import field_cuda, lm_cuda, spec as fs
 from zkmember_tpu_torch.msm import select_reduce_cuda as k1, straus
 from zkmember_tpu_torch.snark import groth16, prove_lm
 
@@ -68,9 +68,42 @@ def test_cuda_tensors_never_take_the_plain_version(monkeypatch):
 
     monkeypatch.setattr(lm_cuda, "mont_mul_plain", boom)
     monkeypatch.setattr(k1, "select_reduce_plain", boom)
+    monkeypatch.setattr(field_cuda, "mont_mul_bm_plain", boom)
     spec = fs.BLS_FQ
     a = _planes(spec, (1, spec.n, 64), 4)
     lm_cuda.mont_mul(spec, a, a)
+    field_cuda.mont_mul_bm(spec, a[0].T, a[0].T)
+
+
+@pytest.mark.parametrize("spec", [fs.BLS_FR, fs.BLS_FQ, fs.BW6_FQ], ids=lambda s: s.name)
+def test_mont_mul_bm_kernel_matches_plain(spec):
+    _need_card()
+    a = _planes(spec, (1, spec.n, 1000), 5)[0].T.reshape(2, 500, spec.n)  # batch-major rows
+    b = _planes(spec, (1, spec.n, 1000), 6)[0].T.reshape(2, 500, spec.n)
+    pm1 = spec.p_limbs.astype(np.int64)
+    pm1[0] -= 1
+    a[0, 0] = 0  # the rows 0 and p - 1
+    a[0, 1] = torch.as_tensor(pm1, dtype=torch.int32)
+    before = kernels.LAUNCHES["mont_mul_bm"]
+    got = field_cuda.mont_mul_bm(spec, a, b)
+    assert kernels.LAUNCHES["mont_mul_bm"] == before + 1
+    assert torch.equal(got, field_cuda.mont_mul_bm_plain(spec, a, b))
+    # a broadcast (n,) constant and a (500, n) table against (2, 500, n) rows
+    for c in (b[1, 7], b[1]):
+        assert torch.equal(field_cuda.mont_mul_bm(spec, a, c), field_cuda.mont_mul_bm_plain(spec, a, c))
+    # a ragged row count (not a multiple of the block's rows)
+    assert torch.equal(field_cuda.mont_mul_bm(spec, a[0, :131], b[0, :131]),
+                       field_cuda.mont_mul_bm_plain(spec, a[0, :131], b[0, :131]))
+
+
+def test_mont_mul_bm_kernel_rejects_bad_rows():
+    _need_card()
+    spec = fs.BLS_FQ
+    a = _planes(spec, (1, spec.n, 64), 7)[0].T.contiguous()
+    with pytest.raises(TypeError):
+        field_cuda.mont_mul_bm_cuda(spec, a.long(), a.long())
+    with pytest.raises(ValueError):
+        field_cuda.mont_mul_bm_cuda(fs.BLS_FR, a, a)
 
 
 @pytest.mark.parametrize("rows", [1, 3])

@@ -1,8 +1,10 @@
 """The port stands alone: it imports neither JAX nor the JAX package.
 
 A fresh interpreter imports zkmember_tpu_torch, loads a key from a
-checkpoint and proves the toy cube circuit on the CPU, then reports what it
-imported.  An AST scan checks every module of the package and chip_smoke.py.
+checkpoint and proves the toy cube circuit on the CPU with the limb-major
+prover, runs the port's own setup and v1 prover on it, loads the CLI, and
+then reports what it imported.  An AST scan checks every module of the
+package and chip_smoke.py.
 """
 
 import ast
@@ -31,9 +33,14 @@ w = g.FpVar.new_witness(cs, 3)
 (w * w * w).enforce_equal(out, "cube")
 keys = checkpoint.load_groth16_keys(sys.argv[1], device="cpu")
 proof = prove_lm.prove(keys, cs, rng=frng.test_rng(3))
+pk, vk = groth16.setup(cs, "bls12_381", frng.test_rng(), device="cpu")
+proof_v1 = groth16.prove(pk, cs, rng=frng.test_rng(4), device="cpu")
+from zkmember_tpu_torch.app import cli
 print(json.dumps({
     "ok": groth16.verify(keys.pk.vk, [27], proof),
     "bad": groth16.verify(keys.pk.vk, [28], proof),
+    "ok_v1": groth16.verify(vk, [27], proof_v1),
+    "bad_v1": groth16.verify(vk, [28], proof_v1),
     "modules": sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "jaxlib", "zkmember_tpu."))),
 }))
 """
@@ -68,7 +75,7 @@ def test_port_proves_without_jax(tmp_path):
     )
     assert res.returncode == 0, res.stderr[-4000:]
     got = json.loads(res.stdout.strip().splitlines()[-1])
-    assert got == {"ok": True, "bad": False, "modules": []}
+    assert got == {"ok": True, "bad": False, "ok_v1": True, "bad_v1": False, "modules": []}
 
 
 def _sources():

@@ -1,10 +1,12 @@
 """Projective short-Weierstrass ops on limb-major planes (counterpart of the
 projective subset of zkmember_tpu.curves.device).
 
-Points are (X, Y, Z) coordinate tuples whose entries are field planes of
-the ops' field vtable (``fields.lm.FpOpsLM`` or ``Fp2OpsLM``); the identity
-is (0, 1, 0).  Additions use the complete RCB a = 0 law, so doubling is
-addition and no input is exceptional.
+Points are (X, Y, Z) coordinate tuples whose entries are field elements of
+the ops' field vtable: limb-major planes (``fields.lm.FpOpsLM`` or
+``Fp2OpsLM``) or batch-major rows (``fields.device.FpOps`` or ``Fp2Ops``),
+which share one stacked interface; the identity is (0, 1, 0).  Additions
+use the complete RCB a = 0 law, so doubling is addition and no input is
+exceptional.
 """
 
 from __future__ import annotations
@@ -27,9 +29,31 @@ class SWOps:
         return f"SWOps({self.name})"
 
 
+def b3_of(curve):
+    """3 b of a host a = 0 SW curve as a small signed int, or an (int, int)
+    pair c0 + c1 u for a curve over Fp2."""
+    field = curve.field
+    p = field.base.p if hasattr(field, "base") else field.p
+
+    def small(v: int) -> int:
+        s = v if v <= p // 2 else v - p
+        if abs(s) >= 1 << 16:
+            raise ValueError("curve b3 is not small")
+        return s
+
+    b = curve.b
+    if hasattr(b, "coeffs"):
+        return tuple(small(int(c.v) * 3 % p) for c in b.coeffs)
+    return small(int(b.v) * 3 % p)
+
+
 def swp_identity(ops: SWOps, shape=()):
     F = ops.F
     return (F.zeros(shape), F.ones(shape), F.zeros(shape))
+
+
+def swp_is_identity(ops: SWOps, P):
+    return ops.F.is_zero(P[2])
 
 
 def swp_from_affine(ops: SWOps, x, y):
@@ -79,6 +103,28 @@ def swp_double(ops: SWOps, P):
 def swp_select(ops: SWOps, mask, P, Q):
     F = ops.F
     return tuple(F.select(mask, a, b) for a, b in zip(P, Q))
+
+
+def swp_to_affine(ops: SWOps, P):
+    """Batch-normalize projective -> affine (x, y, is_identity).  One Fermat
+    inversion of Z for the whole batch; the identity maps to (0, 0)."""
+    F = ops.F
+    X, Y, Z = P
+    zinv = F.inv(Z)
+    x, y = F.mul_many([(X, zinv), (Y, zinv)])
+    return x, y, swp_is_identity(ops, P)
+
+
+def swp_msm_bool(ops: SWOps, mask, P):
+    """MSM with 0/1 scalars along axis 0: mask to the identity, one tree
+    reduction."""
+    ident = swp_identity(ops, ops.F.batch_shape(P[0]))
+    return swp_tree_reduce(ops, swp_select(ops, mask != 0, P, ident))
+
+
+def gather_coord(c, idx):
+    """Rows of a coordinate (tuple aware) by index along axis 0."""
+    return _map(lambda ci: ci[idx], c)
 
 
 def _map(f, c):

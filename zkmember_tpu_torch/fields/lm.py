@@ -174,29 +174,33 @@ class FpOpsLM:
         return const_col(self.spec, v, self.device)
 
 
-def _mul_nr(spec: Fp2Spec, v):
-    if spec.nonresidue == spec.base.p - 1:
-        return neg(spec.base, v)
-    nr = lb.const_limbs(spec.base.mont_scalar(spec.nonresidue), v.device)
-    return mont_mul(spec.base, v, nr)
-
-
 class Fp2OpsLM:
-    """Limb-major Fp2 vtable: elements are (c0, c1) pairs of Fp planes."""
+    """Fp2 vtable: elements are (c0, c1) pairs of base-field elements.
+
+    Every base-field operation goes through ``self.base`` (an FpOpsLM here;
+    ``fields.device.Fp2Ops`` reuses the class over the batch-major FpOps),
+    so the class is the same for either layout."""
+
+    base_ops = FpOpsLM
 
     def __init__(self, spec: Fp2Spec, device):
         self.spec = spec
-        self.base = FpOpsLM(spec.base, device)
+        self.base = self.base_ops(spec.base, device)
         self.device = self.base.device
+
+    def _mul_nr(self, v):
+        if self.spec.nonresidue == self.spec.base.p - 1:
+            return self.base.neg(v)
+        return self.base.mul(v, self.base.const(self.spec.nonresidue))
 
     def mul(self, a, b):
         return self.mul_many([(a, b)])[0]
 
     def mul_many(self, pairs):
         """Karatsuba, fully stacked: ONE base mul of 3k rows."""
-        base = self.spec.base
+        F = self.base
         k = len(pairs)
-        shape = torch.broadcast_shapes(
+        shape = np.broadcast_shapes(
             *(c.shape for a, b in pairs for pair in (a, b) for c in pair)
         )
 
@@ -207,16 +211,16 @@ class Fp2OpsLM:
         A1 = stk([a[1] for a, _ in pairs])
         B0 = stk([b[0] for _, b in pairs])
         B1 = stk([b[1] for _, b in pairs])
-        S = add(base, torch.cat([A0, B0]), torch.cat([A1, B1]))  # a0 + a1, b0 + b1
-        prods = mont_mul(base, torch.cat([A0, A1, S[:k]]), torch.cat([B0, B1, S[k:]]))
+        S = F.add(torch.cat([A0, B0]), torch.cat([A1, B1]))  # a0 + a1, b0 + b1
+        prods = F.mul(torch.cat([A0, A1, S[:k]]), torch.cat([B0, B1, S[k:]]))
         v0 = prods[:k]
         v1 = prods[k : 2 * k]
         t = prods[2 * k :]
-        if self.spec.nonresidue == base.p - 1:
-            c0 = sub(base, v0, v1)
+        if self.spec.nonresidue == self.spec.base.p - 1:
+            c0 = F.sub(v0, v1)
         else:
-            c0 = add(base, v0, _mul_nr(self.spec, v1))
-        c1 = sub(base, t, add(base, v0, v1))
+            c0 = F.add(v0, self._mul_nr(v1))
+        c1 = F.sub(t, F.add(v0, v1))
         return [(c0[i], c1[i]) for i in range(k)]
 
     def _flat(self, fn, pairs):
@@ -247,23 +251,21 @@ class Fp2OpsLM:
         return list(zip(r0, r1))
 
     def sqr(self, a):
-        base = self.spec.base
+        F = self.base
         a0, a1 = a
-        v = mont_mul(base, a0, a1)
-        if self.spec.nonresidue == base.p - 1:
-            c0 = mont_mul(base, add(base, a0, a1), sub(base, a0, a1))
+        v = F.mul(a0, a1)
+        if self.spec.nonresidue == self.spec.base.p - 1:
+            c0 = F.mul(F.add(a0, a1), F.sub(a0, a1))
         else:
-            t = mont_mul(base, add(base, a0, a1), add(base, a0, _mul_nr(self.spec, a1)))
-            c0 = sub(base, sub(base, t, v), _mul_nr(self.spec, v))
-        return (c0, add(base, v, v))
+            t = F.mul(F.add(a0, a1), F.add(a0, self._mul_nr(a1)))
+            c0 = F.sub(F.sub(t, v), self._mul_nr(v))
+        return (c0, F.add(v, v))
 
     def add(self, a, b):
-        base = self.spec.base
-        return (add(base, a[0], b[0]), add(base, a[1], b[1]))
+        return (self.base.add(a[0], b[0]), self.base.add(a[1], b[1]))
 
     def sub(self, a, b):
-        base = self.spec.base
-        return (sub(base, a[0], b[0]), sub(base, a[1], b[1]))
+        return (self.base.sub(a[0], b[0]), self.base.sub(a[1], b[1]))
 
     def neg(self, a):
         return (self.base.neg(a[0]), self.base.neg(a[1]))
@@ -284,13 +286,13 @@ class Fp2OpsLM:
         return self.base.eq(a[0], b[0]) & self.base.eq(a[1], b[1])
 
     def select(self, mask, a, b):
-        return (select(mask, a[0], b[0]), select(mask, a[1], b[1]))
+        return (self.base.select(mask, a[0], b[0]), self.base.select(mask, a[1], b[1]))
 
     def inv(self, a):
         base = self.base
-        norm = base.sub(base.sqr(a[0]), _mul_nr(self.spec, base.sqr(a[1])))
+        norm = base.sub(base.sqr(a[0]), self._mul_nr(base.sqr(a[1])))
         ninv = base.inv(norm)
         return (base.mul(a[0], ninv), base.neg(base.mul(a[1], ninv)))
 
     def batch_shape(self, a):
-        return tuple(a[0].shape[:-2]) + tuple(a[0].shape[-1:])
+        return self.base.batch_shape(a[0])

@@ -23,12 +23,12 @@ import threading
 from zkmember_tpu_torch import _build
 
 CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
-SOURCES = ("mont_mul.cu", "select_reduce.cu")
+SOURCES = ("mont_mul.cu", "mont_mul_bm.cu", "select_reduce.cu")
 HEADERS = ("field.cuh",)
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 FLAGS = ARCH + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-LAUNCHES = {"mont_mul": 0, "select_reduce_fp": 0, "select_reduce_fp2": 0}
+LAUNCHES = {"mont_mul": 0, "select_reduce_fp": 0, "select_reduce_fp2": 0, "mont_mul_bm": 0}
 
 _lock = threading.Lock()
 _lib = None
@@ -95,6 +95,8 @@ def library():
         u32p = ctypes.POINTER(ctypes.c_uint32)
         lib.zk_mont_mul.argtypes = [i32, vp, vp, vp, ll, ll, u32p, u32, vp]
         lib.zk_mont_mul.restype = i32
+        lib.zk_mont_mul_bm.argtypes = [i32, vp, vp, vp, ll, u32p, u32, vp]
+        lib.zk_mont_mul_bm.restype = i32
         lib.zk_select_reduce.argtypes = [
             i32, i32, ctypes.POINTER(vp), vp, ctypes.POINTER(vp), i32, i32, ll, i32,
             u32p, u32, i32, i32, vp,

@@ -117,7 +117,7 @@ def msm_precomp_program(ops, tab, nwin: int, z, mark=None, prefix: str = ""):
     """MSM from precomputed tables through kernel K1, then the narrow tail
     reduction and the Horner join.  tab coords (16, [R,] n, B); z
     (..., [R,] nl, B) canonical scalar limbs.  Returns projective coords
-    ([R,] n, 1).  mark: optional phase clock (snark.prove_lm.PhaseClock),
+    ([R,] n, 1).  mark: optional phase clock (utils.obs.PhaseClock),
     called after each stage as mark(prefix + stage)."""
     mark = mark or (lambda name: None)
     digits = digits_from_limbs(z, nwin).contiguous()  # (W, [R,] B)

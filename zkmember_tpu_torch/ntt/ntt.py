@@ -1,16 +1,21 @@
-"""Radix-2 evaluation domain: host-side twiddle, coset and permutation tables.
+"""Radix-2 evaluation domain and the batch-major NTT (counterpart of zkmember_tpu.ntt.ntt).
 
-Counterpart of the host half of zkmember_tpu.ntt.ntt (``Domain``).  The
-device transforms over these tables live in ``ntt.lm``.  Mirrors
-ark-poly's Radix2EvaluationDomain: generator w of order N, vanishing
-polynomial Z(x) = x^N - 1, and a multiplicative coset with the field's
-multiplicative generator (used by the Groth16 H step).
+``Domain`` holds the host-side twiddle, coset and permutation tables; it
+mirrors ark-poly's Radix2EvaluationDomain: generator w of order N,
+vanishing polynomial Z(x) = x^N - 1, and a multiplicative coset with the
+field's multiplicative generator (used by the Groth16 H step).  The
+limb-major transforms over these tables live in ``ntt.lm``; the
+batch-major ones (``ntt``, ``intt``, ``coset_ntt``, ``coset_intt``, for the
+v1 prover) are below, with every product on ``fields.device.mont_mul``
+(kernel K3 on the card).
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
+from zkmember_tpu_torch.fields import device as dv
 from zkmember_tpu_torch.fields.spec import FieldSpec
 
 
@@ -102,3 +107,66 @@ class Domain:
     def vanishing_on_coset(self) -> int:
         """Z_H(g x) = g^N - 1, constant across the coset."""
         return (pow(self.coset_gen, self.size, self.spec.p) - 1) % self.spec.p
+
+
+# ---------------------------------------------------------------------------
+# batch-major transforms: x is (..., N, n) Montgomery rows, natural order
+# ---------------------------------------------------------------------------
+
+_DEV_TABLES: dict = {}
+
+
+def _dev_table(domain: Domain, name: str, inverse: bool, device) -> torch.Tensor:
+    """A host table of `domain` as an int32 tensor on `device` (cached)."""
+    key = (domain.spec.p, domain.size, name, inverse, str(torch.device(device)))
+    t = _DEV_TABLES.get(key)
+    if t is None:
+        if name == "twiddles":
+            arr = domain._twiddles(inverse)
+        elif name == "coset":
+            arr = domain._coset_powers(inverse)
+        else:  # the bit-reverse permutation
+            arr = domain._perm
+        t = _DEV_TABLES[key] = torch.as_tensor(
+            np.asarray(arr).astype(np.int64),
+            dtype=torch.int64 if name == "perm" else torch.int32, device=device)
+    return t
+
+
+def _fft_core(domain: Domain, x, inverse: bool):
+    """Constant-geometry (Pease) radix-2 DIF over the last-but-one axis:
+    log N identical stages of butterflies (a + b, (a - b) w) and a perfect
+    shuffle, then one bit-reverse gather to natural order."""
+    spec = domain.spec
+    half = domain.size // 2
+    for tw in _dev_table(domain, "twiddles", inverse, x.device):  # (N/2, n) per stage
+        a = x[..., :half, :]
+        b = x[..., half:, :]
+        sm = dv.add(spec, a, b)
+        df = dv.mont_mul(spec, dv.sub(spec, a, b), tw)
+        x = torch.stack([sm, df], dim=-2).reshape(x.shape)
+    return x[..., _dev_table(domain, "perm", False, x.device), :]
+
+
+def ntt(domain: Domain, coeffs):
+    """Coefficients -> evaluations over the domain (Montgomery form)."""
+    return _fft_core(domain, coeffs, inverse=False)
+
+
+def intt(domain: Domain, evals):
+    """Evaluations -> coefficients: inverse NTT with 1/N scaling."""
+    x = _fft_core(domain, evals, inverse=True)
+    scale = dv.FpOps(domain.spec, x.device).const(domain.size_inv)
+    return dv.mont_mul(domain.spec, x, scale)
+
+
+def coset_ntt(domain: Domain, coeffs):
+    """Evaluations over the coset g*H: scale coeffs by g^i, then NTT."""
+    pows = _dev_table(domain, "coset", False, coeffs.device)
+    return _fft_core(domain, dv.mont_mul(domain.spec, coeffs, pows), inverse=False)
+
+
+def coset_intt(domain: Domain, evals):
+    """Inverse of coset_ntt: iNTT then scale by g^-i / N (one fused table)."""
+    x = _fft_core(domain, evals, inverse=True)
+    return dv.mont_mul(domain.spec, x, _dev_table(domain, "coset", True, x.device))

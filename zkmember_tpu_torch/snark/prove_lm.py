@@ -17,8 +17,6 @@ identity, and vanish.
 
 from __future__ import annotations
 
-import time
-
 import numpy as np
 import torch
 
@@ -31,6 +29,7 @@ from zkmember_tpu_torch.msm import straus
 from zkmember_tpu_torch.ntt import lm as nttlm
 from zkmember_tpu_torch.r1cs.cs import ConstraintSystem
 from zkmember_tpu_torch.snark import groth16
+from zkmember_tpu_torch.utils import obs
 from zkmember_tpu_torch.utils import rng as frng
 
 # The kernel tiles lanes in multiples of 64; narrower keys pad up to it.
@@ -41,25 +40,13 @@ def _next_pow2(x: int) -> int:
     return 1 << max(0, (x - 1).bit_length())
 
 
-def _small_signed(v: int, p: int) -> int:
-    s = v if v <= p // 2 else v - p
-    if abs(s) >= 1 << 16:
-        raise ValueError("curve b3 is not small")
-    return s
-
-
 def sw_ops(cfg: "groth16.PairingConfig", g2: bool, device) -> cdv.SWOps:
     """Limb-major SWOps for a pairing config's G1 or G2, b3 = 3 b."""
-    curve = cfg.mod.G2 if g2 else cfg.mod.G1
-    b = curve.b
     if g2:
-        F = lm.Fp2OpsLM(cfg.fq2_spec, device)
-        p = cfg.fq_spec.p
-        b3 = tuple(_small_signed(int(c.v) * 3 % p, p) for c in b.coeffs)
+        F, curve = lm.Fp2OpsLM(cfg.fq2_spec, device), cfg.mod.G2
     else:
-        F = lm.FpOpsLM(cfg.fq_spec, device)
-        b3 = _small_signed(int(b.v) * 3 % cfg.fq_spec.p, cfg.fq_spec.p)
-    return cdv.SWOps(F, b3, f"{cfg.name}_{'g2' if g2 else 'g1'}/lm")
+        F, curve = lm.FpOpsLM(cfg.fq_spec, device), cfg.mod.G1
+    return cdv.SWOps(F, cdv.b3_of(curve), f"{cfg.name}_{'g2' if g2 else 'g1'}/lm")
 
 
 def _pad_lanes(arr: np.ndarray, B: int) -> np.ndarray:
@@ -72,9 +59,12 @@ def _pad_lanes(arr: np.ndarray, B: int) -> np.ndarray:
 
 
 def _dev_planes(c, B, device):
-    """(k, n) batch-major coordinate planes -> (n, B) int32 on device."""
+    """(k, n) batch-major coordinate planes (host numpy or a tensor) ->
+    (n, B) int32 on device."""
     if isinstance(c, tuple):
         return tuple(_dev_planes(ci, B, device) for ci in c)
+    if isinstance(c, torch.Tensor):  # setup leaves the planes on its device
+        c = c.cpu().numpy()
     arr = _pad_lanes(np.swapaxes(np.asarray(c), -1, -2), B)
     return torch.as_tensor(arr.astype(np.int64), dtype=torch.int32, device=device)
 
@@ -247,26 +237,6 @@ def _unflatten(x, it):
     return next(it)
 
 
-class PhaseClock:
-    """Host seconds per named phase, added into `times`; the card is
-    synchronized at every mark so each phase's device work lands in it.
-    With times=None every mark is a no-op (no synchronization)."""
-
-    def __init__(self, times: dict | None, device: torch.device):
-        self.times = times
-        self.device = device
-        self.t = time.perf_counter()
-
-    def __call__(self, name: str) -> None:
-        if self.times is None:
-            return
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-        now = time.perf_counter()
-        self.times[name] = self.times.get(name, 0.0) + now - self.t
-        self.t = now
-
-
 def prove(keys: Groth16KeysLM, cs: ConstraintSystem, rng=None,
           phase_times: dict | None = None) -> "groth16.Proof":
     """Groth16 prove on the limb-major stack.  rng defaults to OS entropy
@@ -285,7 +255,7 @@ def prove(keys: Groth16KeysLM, cs: ConstraintSystem, rng=None,
     fr = keys.fr
     M = keys.M
     dev = keys.device
-    mark = PhaseClock(phase_times, dev)
+    mark = obs.PhaseClock(phase_times, dev)
     nf = zknative.NativeField.get(fr.p, fr.n)
 
     if nf is not None:

@@ -1,9 +1,9 @@
-"""Load Groth16 proving keys saved by zkmember_tpu.utils.checkpoint.
+"""Save and load Groth16 proving keys in the format of zkmember_tpu.utils.checkpoint.
 
 The checkpoint is two files: ``<path>.npz`` holds the (k, n) uint32
 Montgomery query planes and ``<path>.json`` the host data (curve, domain
-size, nonzero index lists, serialized beta/delta points and the verifying
-key).  Files are read in place; nothing is copied.
+size, nonzero index lists, serialized beta/delta points, the verifying key
+and the npz's sha256).  Keys saved by either package load in both.
 """
 
 from __future__ import annotations
@@ -12,6 +12,7 @@ import hashlib
 import json
 
 import numpy as np
+import torch
 
 from zkmember_tpu_torch.snark import groth16, prove_lm
 from zkmember_tpu_torch.utils import serialize as ser
@@ -25,6 +26,57 @@ def _ints(pt):
         return int(c.v)
 
     return (coord(pt[0]), coord(pt[1]))
+
+
+QUERIES = ("a_query", "b_g1_query", "b_g2_query", "h_query", "l_query")
+
+
+def _host_u32(c) -> np.ndarray:
+    if isinstance(c, torch.Tensor):
+        return c.cpu().numpy().astype(np.uint32)
+    return np.asarray(c, np.uint32)
+
+
+def query_arrays(pk: "groth16.ProvingKey") -> dict:
+    """pk's query planes as host uint32 arrays under the npz's names:
+    '<q>_x', '<q>_y', and '<q>_x_c0' ... '<q>_y_c1' for Fp2 coordinates."""
+    store: dict = {}
+
+    def put(name, c):
+        if isinstance(c, tuple):
+            for i, ci in enumerate(c):
+                put(f"{name}_c{i}", ci)
+        else:
+            store[name] = _host_u32(c)
+
+    for name in QUERIES:
+        pa = getattr(pk, name)
+        put(f"{name}_x", pa.x)
+        put(f"{name}_y", pa.y)
+    return store
+
+
+def save_groth16_keys(path: str, pk: "groth16.ProvingKey") -> None:
+    """Write pk and its vk: <path>.npz (query planes) + <path>.json (host data)."""
+    np.savez_compressed(path + ".npz", **query_arrays(pk))
+    with open(path + ".npz", "rb") as f:
+        npz_sha = hashlib.sha256(f.read()).hexdigest()
+
+    g1 = groth16.pairing_config(pk.curve).mod.G1
+    meta = {
+        "npz_sha256": npz_sha,
+        "curve": pk.curve,
+        "domain_size": pk.domain_size,
+        "num_instance": pk.num_instance,
+        "a_nonzero": pk.a_nonzero,
+        "b_nonzero": pk.b_nonzero,
+        "l_nonzero": pk.l_nonzero,
+        "beta_g1": ser.sw_point_to_bytes(g1, pk.beta_g1).hex(),
+        "delta_g1": ser.sw_point_to_bytes(g1, pk.delta_g1).hex(),
+        "vk": ser.vk_to_bytes(pk.vk).hex(),
+    }
+    with open(path + ".json", "w") as f:
+        json.dump(meta, f)
 
 
 def load_groth16_keys(path: str, device=None) -> "prove_lm.Groth16KeysLM":
