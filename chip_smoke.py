@@ -10,8 +10,9 @@ Phases (each raises on failure, so the script exits non-zero):
   k2      Montgomery-product kernel against its plain PyTorch version on the
           card, bit for bit, at BLS12-381 Fq/Fr and BW6-761 Fq widths
   k1      select+reduce kernel (G1 Fp, G2 Fp2) against its plain version
-          from random points at R=1, B=4096, W=64, limb for limb and as
-          points after the tail reduction and Horner join
+          from random points at R=1, B=4096, W=64, limb for limb; then the
+          finish kernel (tail reduction + Horner join) on its output against
+          the plain finish, limb for limb and as points
   prove   the 16-member Groth16 BLS12-381 membership proof from the committed
           key artifacts/groth16_bls12_381_16.* (M = 2^14, 64 windows): warm,
           one warm-up proof, one timed proof with every kernel's launch count
@@ -20,7 +21,7 @@ Phases (each raises on failure, so the script exits non-zero):
           phase (synchronized at each phase); one more proof holds the first
           kernel call of every distinct shape against its plain version on
           the same inputs; then each kernel is timed at the proof's shapes
-          beside its plain version, and the two outputs must agree
+          beside its plain version, and the outputs must agree
   k3      batch-major Montgomery-product kernel against its plain version,
           bit for bit, at n = 16, 24 and 48 (random rows, the rows 0, 1 and
           p - 1, a broadcast (n,) operand), then timed at the v1 path's
@@ -74,7 +75,9 @@ IMAD_PER_S = 67e12 / 4
 RESULTS: dict = {}
 STATE: dict = {}  # keys and circuits handed from one phase to the next
 CIRCUITS: dict = {}  # members -> (circuit, public inputs, rng state after the CRH params)
-PROVE_KERNELS = ("mont_mul", "select_reduce_fp", "select_reduce_fp2")  # prove_lm's path
+# prove_lm's path
+PROVE_KERNELS = ("mont_mul", "select_reduce_fp", "select_reduce_fp2", "msm_finish_fp",
+                 "msm_finish_fp2")
 ERRS: dict = {}  # kernel -> largest limb difference from its plain version
 CHECKS: dict = {}  # kernel -> the shapes at which it was held against it
 
@@ -83,22 +86,24 @@ def log(msg: str) -> None:
     print(f"# [{time.time() - T0:8.2f}s] {msg}", file=sys.stderr, flush=True)
 
 
-def cuda_ms(fn, reps: int = 5, warmup: bool = True) -> float:
-    """Median milliseconds of fn() on the card (CUDA events)."""
+def cuda_ms(fn, reps: int = 20, rounds: int = 3, warmup: bool = True) -> float:
+    """Milliseconds of one fn() on the card: `reps` back-to-back calls between
+    one pair of CUDA events, divided by `reps`; the median of `rounds`."""
     import torch
 
     if warmup:
         fn()
     torch.cuda.synchronize()
     times = []
-    for _ in range(reps):
+    for _ in range(rounds):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for _ in range(reps):
+            fn()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / reps)
     return statistics.median(times)
 
 
@@ -144,7 +149,8 @@ def phase_build():
     RESULTS["build_s"] = time.time() - t
     log(f"kernels built and loaded in {RESULTS['build_s']:.1f}s")
     for line in kernels.BUILD_LOG.splitlines():
-        if "registers" in line or "spill" in line or line.startswith("=="):
+        if any(k in line for k in ("registers", "spill", "Function properties")) \
+                or line.startswith("=="):
             print(f"#   {line.strip()}", file=sys.stderr)
 
 
@@ -239,7 +245,7 @@ def phase_k1(np_rng, py_rng):
 
     from zkmember_tpu_torch.curves import bls12_381 as bls
     from zkmember_tpu_torch.fields import spec as fs
-    from zkmember_tpu_torch.msm import select_reduce_cuda as k1, straus
+    from zkmember_tpu_torch.msm import finish_cuda as fin, select_reduce_cuda as k1, straus
     from zkmember_tpu_torch.snark import groth16, prove_lm
 
     cfg = groth16.pairing_config("bls12_381")
@@ -248,8 +254,7 @@ def phase_k1(np_rng, py_rng):
         ops = prove_lm.sw_ops(cfg, g2, "cuda")
         curve, gen = (bls.G2, bls.G2_GEN) if g2 else (bls.G1, bls.G1_GEN)
         X, Y = _planes_of(fs.BLS_FQ, _host_points(curve, gen, B, py_rng), g2)
-        tab = straus.table_program(ops, X, Y)
-        tab = tuple(straus._map_coord(lambda c: c[:, None].contiguous(), x) for x in tab)
+        tab = straus.table_program(ops, X, Y)  # records (16, 1, B, .)
         scal = [py_rng.randrange(bls.R) for _ in range(B)]
         z = torch.as_tensor(fs.to_lm(fs.ints_to_limbs(scal, 16)).astype(np.int64),
                             dtype=torch.int32, device="cuda")
@@ -258,14 +263,16 @@ def phase_k1(np_rng, py_rng):
         want = k1.select_reduce_plain(ops, tab, digits)
         name = "select_reduce_fp2" if g2 else "select_reduce_fp"
         _hold(name, f"random points W={W} R=1 B={B}", got, want)
-        pts = []
-        for S in (got, want):
-            S = tuple(straus._map_coord(lambda c: c[:, 0], x) for x in S)
-            acc = straus.horner_join(ops, straus.tree_reduce_lanes(ops, S))
-            pts.append(straus.projective_to_host(curve, _to_numpy(acc)))
-        if pts[0] != pts[1] or pts[0] is None:
-            raise AssertionError(f"K1 {name} gives another point than its plain version")
-        log(f"K1 {name} R=1 B={B} W={W}: limb-exact and the same point after the join")
+        fname = "msm_finish_fp2" if g2 else "msm_finish_fp"
+        NT = got[0][0].shape[-1] if g2 else got[0].shape[-1]
+        _hold(fname, f"K1's output W={W} R=1 NT={NT}", fin.msm_finish_cuda(ops, got),
+              fin.msm_finish_plain(ops, got))
+        sg, sw = (tuple(straus._map_coord(lambda c: c[:, 0], x) for x in S) for S in (got, want))
+        pts = [straus.projective_to_host(curve, _to_numpy(acc))  # (W, n, NT): no row axis
+               for acc in (fin.msm_finish_cuda(ops, sg), fin.msm_finish_plain(ops, sw))]
+        if pts[0] is None or any(p != pts[0] for p in pts):
+            raise AssertionError(f"K1 {name} and the finish give another point than the plain versions")
+        log(f"K1 {name} R=1 B={B} W={W} and {fname} (NT={NT}): limb-exact, the same point")
 
 
 def _membership_circuit(members: int):
@@ -306,7 +313,7 @@ def phase_prove(np_rng):
 
     from zkmember_tpu_torch import kernels
     from zkmember_tpu_torch.fields import lm_cuda, spec as fs
-    from zkmember_tpu_torch.msm import select_reduce_cuda as k1, straus
+    from zkmember_tpu_torch.msm import finish_cuda as fin, select_reduce_cuda as k1
     from zkmember_tpu_torch.snark import groth16, prove_lm
     from zkmember_tpu_torch.utils import checkpoint
 
@@ -332,6 +339,12 @@ def phase_prove(np_rng):
     missing = [k for k in PROVE_KERNELS if launches[k] == 0]
     if missing:
         raise AssertionError(f"the proof launched no {missing}")
+    # the H pipeline's 3 log2(M) NTT stages and 6 pointwise products; one K1
+    # and two finish launches per MSM
+    expect = {"mont_mul": 3 * (keys.M.bit_length() - 1) + 6, "select_reduce_fp": 1,
+              "select_reduce_fp2": 1, "msm_finish_fp": 2, "msm_finish_fp2": 2}
+    if any(launches[k] != v for k, v in expect.items()):
+        raise AssertionError(f"the proof's launches {launches} differ from {expect}")
     RESULTS["prove_s"] = prove_s
     RESULTS["launches"] = launches
     STATE.update(keys=keys, cs=cs, rng=rng)
@@ -366,33 +379,48 @@ def phase_prove(np_rng):
           lm_cuda.mont_mul_plain(spec, a, b))
     RESULTS["mont_mul"] = {
         "shape": list(shape),
-        "ms": cuda_ms(lambda: lm_cuda.mont_mul_cuda(spec, a, b), reps=20),
-        "plain_ms": cuda_ms(lambda: lm_cuda.mont_mul_plain(spec, a, b), reps=3),
+        "ms": cuda_ms(lambda: lm_cuda.mont_mul_cuda(spec, a, b)),
+        "plain_ms": cuda_ms(lambda: lm_cuda.mont_mul_plain(spec, a, b), reps=1),
         "bound": _bound(3 * n_elem * spec.n * 4, n_elem * imads_per_mul),
     }
     W = keys.nwin
     for g2, tab, R, B in ((False, keys.g1_tab, 4, keys.B1), (True, keys.g2_tab, 1, keys.B2)):
         ops = keys.ops2 if g2 else keys.ops1
-        if g2:  # (16, n, B) -> (16, 1, n, B)
-            tab = tuple(straus._map_coord(lambda c: c[:, None].contiguous(), x) for x in tab)
         dig = torch.as_tensor(np_rng.integers(0, 16, size=(W, R, B)), dtype=torch.int32,
                               device="cuda")
         name = "select_reduce_fp2" if g2 else "select_reduce_fp"
-        _hold(name, f"timed W={W} R={R} B={B}", k1.select_reduce_cuda(ops, tab, dig),
-              select_reduce_plain_sliced(ops, tab, dig))
-        kms = cuda_ms(lambda: k1.select_reduce_cuda(ops, tab, dig), reps=3)
-        pms = cuda_ms(lambda: select_reduce_plain_sliced(ops, tab, dig), reps=1, warmup=False)
-        T, L = k1.tile_shape(B)
+        S = k1.select_reduce_cuda(ops, tab, dig)
+        _hold(name, f"timed W={W} R={R} B={B}", S, select_reduce_plain_sliced(ops, tab, dig))
+        kms = cuda_ms(lambda: k1.select_reduce_cuda(ops, tab, dig))
+        pms = cuda_ms(lambda: select_reduce_plain_sliced(ops, tab, dig), reps=1, rounds=1,
+                      warmup=False)
+        _, L = k1.tile_shape(B)
+        NT = B // L
         nc = 2 if g2 else 1
-        adds = W * R * (B - B // (T * L))
-        base_muls = adds * 12 * (3 if g2 else 1)  # 12 products per add, 3 base each for Fp2
-        table_bytes = 16 * R * 3 * nc * spec.n * B * 4
-        out_bytes = W * R * 3 * nc * spec.n * (B // (T * L)) * 4
+        prods = 12 * (3 if g2 else 1)  # base products of one complete addition
+        point_bytes = 3 * nc * spec.n * 4
         RESULTS[name] = {
             "shape": [W, R, B], "ms": kms, "plain_ms": pms,
-            "bound": _bound(table_bytes + W * R * B * 4 + out_bytes, base_muls * imads_per_mul),
+            "bound": _bound(16 * R * B * point_bytes + W * R * B * 4 + W * R * NT * point_bytes,
+                            W * R * (B - NT) * prods * imads_per_mul),
         }
-    for k in ("mont_mul", "select_reduce_fp", "select_reduce_fp2"):
+        # the finish on this K1 output: NT lanes a window, then the join
+        fname = "msm_finish_fp2" if g2 else "msm_finish_fp"
+        _hold(fname, f"timed W={W} R={R} NT={NT}", fin.msm_finish_cuda(ops, S),
+              fin.msm_finish_plain(ops, S))
+        chain = 5 * W  # dependent additions of one row's join
+        RESULTS[fname] = {
+            "shape": [W, R, NT],
+            "ms": cuda_ms(lambda: fin.msm_finish_cuda(ops, S)),
+            "plain_ms": cuda_ms(lambda: fin.msm_finish_plain(ops, S), reps=1, rounds=1,
+                                warmup=False),
+            "bound": _bound(W * R * NT * point_bytes + R * point_bytes,
+                            (W * R * (NT - 1) + chain * R) * prods * imads_per_mul),
+        }
+        log(f"{fname}: the join is a chain of {chain} dependent additions of "
+            f"{prods * imads_per_mul} IMADs per row")
+    for k in ("mont_mul", "select_reduce_fp", "select_reduce_fp2", "msm_finish_fp",
+              "msm_finish_fp2"):
         r = RESULTS[k]
         log(f"{k} at {r['shape']}: kernel {r['ms']:.3f} ms, plain {r['plain_ms']:.1f} ms, "
             f"bound {r['bound'][0]:.4f} ms ({r['bound'][1]})")
@@ -401,14 +429,14 @@ def phase_prove(np_rng):
 def checked_proof(keys, cs, rng):
     """One proof in which the first call of each kernel at every distinct
     shape (operand shapes and field) is held against its plain version on
-    the same inputs, limb for limb: the NTT, table, tail and Horner-join
-    shapes of K2 and both K1 grids.  Its launches are outside the counted
-    proof."""
+    the same inputs, limb for limb: the NTT shapes of K2, both K1 grids and
+    both finishes.  Its launches are outside the counted proof."""
     from zkmember_tpu_torch.fields import lm_cuda
-    from zkmember_tpu_torch.msm import select_reduce_cuda as k1
+    from zkmember_tpu_torch.msm import finish_cuda as fin, select_reduce_cuda as k1
     from zkmember_tpu_torch.snark import prove_lm
 
     mont_mul_cuda, select_reduce_cuda = lm_cuda.mont_mul_cuda, k1.select_reduce_cuda
+    msm_finish_cuda = fin.msm_finish_cuda
     seen = set()
 
     def mont_mul_checked(spec, a, b):
@@ -428,14 +456,23 @@ def checked_proof(keys, cs, rng):
               select_reduce_plain_sliced(ops, tab, digits))
         return out
 
+    def msm_finish_checked(ops, S):
+        out = msm_finish_cuda(ops, S)
+        c = S[0][0] if isinstance(S[0], tuple) else S[0]
+        name = "msm_finish_fp2" if isinstance(ops.b3, tuple) else "msm_finish_fp"
+        _hold(name, f"proof {tuple(c.shape)}", out, fin.msm_finish_plain(ops, S))
+        return out
+
     lm_cuda.mont_mul_cuda, k1.select_reduce_cuda = mont_mul_checked, select_reduce_checked
+    fin.msm_finish_cuda = msm_finish_checked
     try:
         t = time.time()
         prove_lm.prove(keys, cs, rng=rng)  # ends on the host
     finally:
         lm_cuda.mont_mul_cuda, k1.select_reduce_cuda = mont_mul_cuda, select_reduce_cuda
+        fin.msm_finish_cuda = msm_finish_cuda
     log(f"checked proof in {time.time() - t:.1f}s: K2 bit-exact at {len(seen)} distinct "
-        f"operand shapes, K1 limb-exact at both of the proof's grids")
+        f"operand shapes, K1 and the finish limb-exact at both of the proof's MSMs")
 
 
 def _bound(nbytes: float, imads: float):
@@ -573,8 +610,8 @@ def phase_k3(np_rng):
         nbytes = (a.numel() + b.numel() + a.numel()) * 4
         timed.append({
             "shape": list(shape), "operand_b": list(b.shape),
-            "ms": cuda_ms(lambda: k3(spec, a, b), reps=20),
-            "plain_ms": cuda_ms(lambda: mont_mul_bm_plain_rows(spec, a, b), reps=3),
+            "ms": cuda_ms(lambda: k3(spec, a, b)),
+            "plain_ms": cuda_ms(lambda: mont_mul_bm_plain_rows(spec, a, b), reps=1),
             "bound": _bound(nbytes, rows * _imads(spec)),
         })
         r = timed[-1]
@@ -869,6 +906,10 @@ def main() -> int:
                                   "zkmember_tpu/msm/pallas_msm.py:268"),
             "mont_mul_bm": ("zkmember_tpu_torch/csrc/mont_mul_bm.cu",
                             "zkmember_tpu/fields/pallas_field.py:279"),
+            "msm_finish_fp": ("zkmember_tpu_torch/csrc/msm_finish.cu",
+                              "zkmember_tpu/msm/straus.py:76,204"),
+            "msm_finish_fp2": ("zkmember_tpu_torch/csrc/msm_finish.cu",
+                               "zkmember_tpu/msm/straus.py:76,204"),
         }
         rows = []
         for name in kernels.LAUNCHES:

@@ -17,7 +17,7 @@ import torch
 from zkmember_tpu_torch import kernels
 from zkmember_tpu_torch.curves import bls12_381 as bls
 from zkmember_tpu_torch.fields import field_cuda, lm_cuda, spec as fs
-from zkmember_tpu_torch.msm import select_reduce_cuda as k1, straus
+from zkmember_tpu_torch.msm import finish_cuda, select_reduce_cuda as k1, straus
 from zkmember_tpu_torch.snark import groth16, prove_lm
 
 pytestmark = pytest.mark.cuda
@@ -69,10 +69,13 @@ def test_cuda_tensors_never_take_the_plain_version(monkeypatch):
     monkeypatch.setattr(lm_cuda, "mont_mul_plain", boom)
     monkeypatch.setattr(k1, "select_reduce_plain", boom)
     monkeypatch.setattr(field_cuda, "mont_mul_bm_plain", boom)
+    monkeypatch.setattr(finish_cuda, "msm_finish_plain", boom)
     spec = fs.BLS_FQ
     a = _planes(spec, (1, spec.n, 64), 4)
     lm_cuda.mont_mul(spec, a, a)
     field_cuda.mont_mul_bm(spec, a[0].T, a[0].T)
+    ops = prove_lm.sw_ops(groth16.pairing_config("bls12_381"), False, "cuda")
+    finish_cuda.msm_finish(ops, tuple(_planes(spec, (2, spec.n, 4), 5 + i) for i in range(3)))
 
 
 @pytest.mark.parametrize("spec", [fs.BLS_FR, fs.BLS_FQ, fs.BW6_FQ], ids=lambda s: s.name)
@@ -106,12 +109,14 @@ def test_mont_mul_bm_kernel_rejects_bad_rows():
         field_cuda.mont_mul_bm_cuda(fs.BLS_FR, a, a)
 
 
+# (W, B): one tile; a window count that is not a multiple of the warps of a
+# block (4 for Fp, 2 for Fp2); two tiles
+@pytest.mark.parametrize("W,B", [(4, 256), (3, 512), (3, 1024)])
 @pytest.mark.parametrize("rows", [1, 3])
 @pytest.mark.parametrize("g2", [False, True], ids=["g1", "g2"])
-def test_select_reduce_kernel_matches_plain(g2, rows):
+def test_select_reduce_kernel_matches_plain(g2, rows, W, B):
     _need_card()
     rng = random.Random(5)
-    B, W = 256, 4
     curve, gen = (bls.G2, bls.G2_GEN) if g2 else (bls.G1, bls.G1_GEN)
     P = curve.mul(rng.randrange(1, bls.R), gen)
     step = curve.mul(rng.randrange(1, bls.R), gen)
@@ -135,13 +140,7 @@ def test_select_reduce_kernel_matches_plain(g2, rows):
     tabs = [straus.table_program(ops, straus._map_coord(lambda c: roll(c, r), X),
                                  straus._map_coord(lambda c: roll(c, r), Y))
             for r in range(rows)]
-
-    def stack(*cs):  # R tables of (16, n, B) coords -> (16, R, n, B)
-        if isinstance(cs[0], tuple):
-            return tuple(stack(*parts) for parts in zip(*cs))
-        return torch.stack(cs, 1).contiguous()
-
-    tab = tuple(stack(*xs) for xs in zip(*tabs))
+    tab = torch.cat(tabs, 1).contiguous()  # R records (16, 1, B, .) -> (16, R, B, .)
     digits = torch.randint(0, 16, (W, rows, B), dtype=torch.int32, device="cuda")
     name = "select_reduce_fp2" if g2 else "select_reduce_fp"
     before = kernels.LAUNCHES[name]
@@ -153,3 +152,27 @@ def test_select_reduce_kernel_matches_plain(g2, rows):
         assert torch.equal(g, w)
     with pytest.raises(ValueError):
         k1.select_reduce_cuda(ops, tab, digits[..., :32].contiguous())
+
+
+# (W, R, NT): even/odd rounds only; contiguous halvings before them (NT > 256)
+@pytest.mark.parametrize("W,R,NT", [(3, 2, 8), (2, 1, 1024)])
+@pytest.mark.parametrize("g2", [False, True], ids=["g1", "g2"])
+def test_msm_finish_kernel_matches_plain(g2, W, R, NT):
+    _need_card()
+    spec = fs.BLS_FQ
+    ops = prove_lm.sw_ops(groth16.pairing_config("bls12_381"), g2, "cuda")
+    # any field elements will do: both versions run the same arithmetic
+    planes = [_planes(spec, (W * R, spec.n, NT), 20 + i).reshape(W, R, spec.n, NT)
+              for i in range(6 if g2 else 3)]
+    S = tuple((planes[2 * i], planes[2 * i + 1]) for i in range(3)) if g2 else tuple(planes)
+    want = finish_cuda.msm_finish_plain(ops, S)
+    flat = lambda P: [c for x in P for c in (x if isinstance(x, tuple) else (x,))]  # noqa: E731
+    name = "msm_finish_fp2" if g2 else "msm_finish_fp"
+    before = kernels.LAUNCHES[name]
+    got = finish_cuda.msm_finish_cuda(ops, S)
+    assert kernels.LAUNCHES[name] == before + 2
+    for g, w in zip(flat(got), flat(want)):
+        assert g.shape == (R, spec.n, 1)
+        assert torch.equal(g, w)
+    with pytest.raises(ValueError):
+        finish_cuda.msm_finish_cuda(ops, tuple(c[..., :3].contiguous() for c in flat(S)[:3]))

@@ -68,7 +68,7 @@ def test_msm_g1_matches_reference_windows_and_total():
     ops = _ops()
     tab = straus.table_program(ops, _t(X), _t(Y))
     digits = straus.digits_from_limbs(_t(z), nwin).contiguous()[:, None]
-    S = k1.select_reduce_plain(ops, tuple(c[:, None] for c in tab), digits)
+    S = k1.select_reduce_plain(ops, tab, digits)
     S = straus.tree_reduce_lanes(ops, tuple(c[:, 0] for c in S))  # (W, n, 1)
 
     jops = jcdv.sw_ops_for(jlm.FpOpsLM(dv.BLS_FQ), 12, "bls12_381_g1/lm")
@@ -84,26 +84,38 @@ def test_msm_g1_matches_reference_windows_and_total():
 
 
 def test_select_reduce_plain_tiles_in_kernel_order():
-    """B = 128 splits into 2 tiles of 32 threads x 2 lanes: every per-tile
-    window sum equals the host sum of that tile's selected multiples."""
-    nwin, B = 2, 128
-    pts, scalars, X, Y, z = _case(12, B, 8)
-    assert k1.tile_shape(B) == (32, 2)
+    """B = 1024 splits into 2 tiles of 32 threads x 16 lanes: output lane
+    32 t + j of every window equals the host sum of the selected multiples
+    of lanes 512 t + 32 k + j, k < 16 (the kernel's per-thread sum)."""
+    nwin, B = 2, 1024
+    rng = random.Random(12)
+    step = bls.G1.mul(rng.randrange(1, bls.R), bls.G1_GEN)
+    pts = [bls.G1.mul(rng.randrange(1, bls.R), bls.G1_GEN)]
+    for _ in range(B - 1):
+        pts.append(bls.G1.add(pts[-1], step))
+    scalars = [rng.randrange(1 << 8) for _ in range(B)]
+    X = fs.to_lm(fs.BLS_FQ.to_mont_host([p[0].v for p in pts]))
+    Y = fs.to_lm(fs.BLS_FQ.to_mont_host([p[1].v for p in pts]))
+    z = fs.to_lm(fs.ints_to_limbs(scalars, 16))
+    assert k1.tile_shape(B) == (32, 16)
     ops = _ops()
-    tab = tuple(c[:, None] for c in straus.table_program(ops, _t(X), _t(Y)))
+    tab = straus.table_program(ops, _t(X), _t(Y))
     digits = straus.digits_from_limbs(_t(z), nwin).contiguous()[:, None]
     S = k1.select_reduce_plain(ops, tab, digits)
-    assert S[0].shape == (nwin, 1, 24, 2)
+    assert S[0].shape == (nwin, 1, 24, 64)
     for w in range(nwin):
         shift = 4 * (nwin - 1 - w)
         for t in range(2):
-            lanes = range(64 * t, 64 * (t + 1))
-            want = None
-            for i in lanes:
-                d = (scalars[i] >> shift) & 15
-                want = bls.G1.add(want, bls.G1.mul(d, pts[i]) if d else None)
-            got = straus.projective_to_host(bls.G1, tuple(c[w, 0, :, t : t + 1].numpy() for c in S))
-            assert _ints(got) == _ints(want), (w, t)
+            for j in range(32):
+                want = None
+                for k in range(16):
+                    i = 512 * t + 32 * k + j
+                    d = (scalars[i] >> shift) & 15
+                    want = bls.G1.add(want, bls.G1.mul(d, pts[i]) if d else None)
+                o = 32 * t + j
+                got = straus.projective_to_host(
+                    bls.G1, tuple(c[w, 0, :, o : o + 1].numpy() for c in S))
+                assert _ints(got) == _ints(want), (w, t, j)
 
 
 @pytest.mark.skipif(
@@ -121,3 +133,28 @@ def test_msm_g1_matches_reference_precomp_interpret():
     want = jstraus.projective_to_host(
         None, jbls.G1, jstraus.msm_precomp_program(jops, jtab, nwin, z))
     assert _ints(got) == _ints(want)
+
+
+@pytest.mark.parametrize("g2", [False, True], ids=["g1", "g2"])
+def test_pack_records_layout(g2):
+    """The K1 kernel's packed table: entry e of lane i of row r is one
+    record of 32-bit words lo | hi << 16, coordinates X, Y, Z, each in its
+    components' order; a table without a row axis gets R = 1; unpacking
+    gives the planes back."""
+    rng = np.random.default_rng(3)
+    R, B = 2, 8
+    comps = 2 if g2 else 1
+    planes = [torch.from_numpy(rng.integers(0, 1 << 16, size=(16, R, 24, B)).astype(np.int32))
+              for _ in range(3 * comps)]
+    tab = tuple((planes[2 * c], planes[2 * c + 1]) for c in range(3)) if g2 else tuple(planes)
+    rec = k1.pack_records(tab)
+    assert rec.shape == (16, R, B, 3 * comps * 12) and rec.is_contiguous()
+    for e, r, i in ((0, 0, 0), (5, 1, 3), (15, 1, 7)):
+        want = [int(p[e, r, 2 * w, i]) | int(p[e, r, 2 * w + 1, i]) << 16
+                for p in planes for w in range(12)]
+        assert [int(v) & 0xFFFFFFFF for v in rec[e, r, i]] == want
+    lifted = k1.pack_records(straus._map_coord(lambda c: c[:, 0], tab))
+    assert torch.equal(lifted, rec[:, :1])
+    back = k1.unpack_records(rec, g2)
+    flat = [c for x in back for c in (x if g2 else (x,))]
+    assert all(torch.equal(b, p) for b, p in zip(flat, planes)) and len(flat) == len(planes)

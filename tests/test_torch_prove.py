@@ -81,8 +81,8 @@ def test_toy_proof_equals_reference_and_verifies():
     phases = {}
     proof = prove_lm.prove(keys, cs, rng=frng.test_rng(7), phase_times=phases)
     assert set(phases) == {
-        "matrix_evals", "h_pipeline", "witness_planes", "g1_select_reduce", "g1_tail",
-        "g1_horner", "g2_select_reduce", "g2_tail", "g2_horner", "fetch", "assemble",
+        "matrix_evals", "h_pipeline", "witness_planes", "g1_select_reduce", "g1_finish",
+        "g2_select_reduce", "g2_finish", "fetch", "assemble",
     }
     ref = jprove_lm.prove(jprove_lm.Groth16KeysLM(pk, jcs), jcs, rng=jrng.test_rng(7))
     for got, want in ((proof.a, ref.a), (proof.b, ref.b), (proof.c, ref.c)):

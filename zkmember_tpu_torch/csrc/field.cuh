@@ -137,17 +137,20 @@ __device__ __forceinline__ void fzero(Fe<N>& r) {
   for (int i = 0; i < N; ++i) r.w[i] = 0;
 }
 
-// r = k * x for a small signed k (double-and-add chain).
+// r = k * x for a small signed k: double-and-add from the top bit down
+// (2 additions for k = 3, 4 for k = 12).
 template <int N>
 __device__ __forceinline__ void fmul_small(Fe<N>& r, const Fe<N>& x, int k, const Mod<N>& m) {
   const bool neg = k < 0;
-  unsigned u = neg ? static_cast<unsigned>(-k) : static_cast<unsigned>(k);
-  Fe<N> acc, cur = x;
+  const unsigned u = neg ? static_cast<unsigned>(-k) : static_cast<unsigned>(k);
+  Fe<N> acc;
   fzero<N>(acc);
-  while (u) {
-    if (u & 1u) fadd<N>(acc, acc, cur, m);
-    u >>= 1;
-    if (u) fadd<N>(cur, cur, cur, m);
+  if (u) {
+    acc = x;
+    for (int bit = 30 - __clz(u); bit >= 0; --bit) {
+      fadd<N>(acc, acc, acc, m);
+      if ((u >> bit) & 1u) fadd<N>(acc, acc, x, m);
+    }
   }
   if (neg) {
     Fe<N> z;
@@ -164,7 +167,9 @@ __device__ __forceinline__ void fmul_small(Fe<N>& r, const Fe<N>& x, int k, cons
 template <int N>
 struct FpField {
   using E = Fe<N>;
+  static constexpr int kN = N;
   static constexpr int kComponents = 1;
+  static constexpr int kParts = 1;  // base products of one product
   struct Consts {
     Mod<N> m;
     int b3;
@@ -175,6 +180,12 @@ struct FpField {
   __device__ static void mul3(E& r, const E& a, const Consts& c) { fmul_small<N>(r, a, 3, c.m); }
   __device__ static void mulb3(E& r, const E& a, const Consts& c) { fmul_small<N>(r, a, c.b3, c.m); }
   __device__ static Fe<N>& comp(E& e, int) { return e; }
+  __device__ static const Fe<N>& comp(const E& e, int) { return e; }
+  // A product split into base products that run apart (one part for Fp).
+  __device__ static void mul_part(Fe<N>& v, const E& a, const E& b, int, const Consts& c) {
+    fmul<N>(v, a, b, c.m);
+  }
+  __device__ static void join_parts(E& r, const Fe<N>* v, const Consts&) { r = v[0]; }
 };
 
 template <int N>
@@ -186,7 +197,9 @@ struct Fp2 {
 template <int N>
 struct Fp2Field {
   using E = Fp2<N>;
+  static constexpr int kN = N;
   static constexpr int kComponents = 2;
+  static constexpr int kParts = 3;
   struct Consts {
     Mod<N> m;
     int b3c0, b3c1;
@@ -226,53 +239,32 @@ struct Fp2Field {
     fadd<N>(r.c1, y0, y1, c.m);
   }
   __device__ static Fe<N>& comp(E& e, int i) { return i == 0 ? e.c0 : e.c1; }
+  __device__ static const Fe<N>& comp(const E& e, int i) { return i == 0 ? e.c0 : e.c1; }
+  // The Karatsuba products of mul apart: v0 = a0 b0, v1 = a1 b1,
+  // v2 = (a0 + a1)(b0 + b1); join_parts gives mul's result from them.
+  // `part` may differ between threads: operands are picked by value, so no
+  // component is addressed by a runtime index (which would move it to
+  // local memory).
+  __device__ static void mul_part(Fe<N>& v, const E& a, const E& b, int part, const Consts& c) {
+    Fe<N> x, y;
+    if (part == 2) {
+      fadd<N>(x, a.c0, a.c1, c.m);
+      fadd<N>(y, b.c0, b.c1, c.m);
+    } else {
+#pragma unroll
+      for (int i = 0; i < N; ++i) {
+        x.w[i] = part ? a.c1.w[i] : a.c0.w[i];
+        y.w[i] = part ? b.c1.w[i] : b.c0.w[i];
+      }
+    }
+    fmul<N>(v, x, y, c.m);
+  }
+  __device__ static void join_parts(E& r, const Fe<N>* v, const Consts& c) {
+    Fe<N> t;
+    fsub<N>(t, v[2], v[0], c.m);
+    fsub<N>(r.c1, t, v[1], c.m);
+    fsub<N>(r.c0, v[0], v[1], c.m);
+  }
 };
-
-template <class F>
-struct Point {
-  typename F::E x, y, z;
-};
-
-// Complete projective addition for a = 0 short-Weierstrass curves
-// (Renes-Costello-Batina 2015, Alg. 7): 12 products, no exceptional cases.
-template <class F>
-__device__ __noinline__ void point_add(Point<F>& r, const Point<F>& p, const Point<F>& q,
-                                       const typename F::Consts& c) {
-  using E = typename F::E;
-  E t0, t1, t2, t3, t4, t5, u, v;
-  F::mul(t0, p.x, q.x, c);
-  F::mul(t1, p.y, q.y, c);
-  F::mul(t2, p.z, q.z, c);
-  F::add(u, p.x, p.y, c);
-  F::add(v, q.x, q.y, c);
-  F::mul(t3, u, v, c);
-  F::sub(t3, t3, t0, c);
-  F::sub(t3, t3, t1, c);  // X1 Y2 + X2 Y1
-  F::add(u, p.y, p.z, c);
-  F::add(v, q.y, q.z, c);
-  F::mul(t4, u, v, c);
-  F::sub(t4, t4, t1, c);
-  F::sub(t4, t4, t2, c);  // Y1 Z2 + Y2 Z1
-  F::add(u, p.x, p.z, c);
-  F::add(v, q.x, q.z, c);
-  F::mul(t5, u, v, c);
-  F::sub(t5, t5, t0, c);
-  F::sub(t5, t5, t2, c);  // X1 Z2 + X2 Z1
-  F::mul3(t0, t0, c);
-  F::mulb3(t2, t2, c);
-  E z3;
-  F::add(z3, t1, t2, c);
-  F::sub(t1, t1, t2, c);
-  F::mulb3(t5, t5, c);
-  F::mul(u, t3, t1, c);
-  F::mul(v, t4, t5, c);
-  F::sub(r.x, u, v, c);
-  F::mul(u, t5, t0, c);
-  F::mul(v, t1, z3, c);
-  F::add(r.y, u, v, c);
-  F::mul(u, z3, t4, c);
-  F::mul(v, t0, t3, c);
-  F::add(r.z, u, v, c);
-}
 
 }  // namespace zk

@@ -4,123 +4,130 @@
 // (kernel _kernel; in-kernel _fadd/_fsub/_fmul/_fmul_small/_rcb_add/
 // _swp_add/_swp_add_fp2).  For every window w and row r it picks, at each
 // lane i, the table entry tab[digit(w, r, i)] = [digit] P_i and sums the
-// lanes of each tile with complete projective additions (RCB a = 0).
+// lanes of each thread with complete projective additions (RCB a = 0).
 //
-//   tab     one (16, R, n, B) int32 plane per coordinate component
-//           (3 for Fp, 6 for Fp2: x0 x1 y0 y1 z0 z1), entry 0 = identity
+//   tab     (16, R, B, 3 C n/2) 32-bit words: entry e of lane i of row r
+//           as one contiguous record, coordinates X, Y, Z, each of C = 1
+//           (Fp) or 2 (Fp2) components of n/2 words; entry 0 = identity
+//           (the wrapper packs the reference's (16, R, n, B) limb planes)
 //   digits  (W, R, B) int32 in [0, 16), most significant window first
-//   out     one (W, R, n, NT) int32 plane per component, NT = B / (32 L)
+//   out     one (W, R, n, B / L) int32 plane per component
 //
-// Design: one warp-sized block per (lane tile, row); the window loop runs
-// inside the block, where the TPU ran a sequential grid axis.  Thread j of
-// tile t owns lanes t*32L + k*32 + j for k < L: it sums its L selections in
-// order, then the warp halves its 32 partial sums with shuffles (lane j adds
-// lane j + h for h = 16, 8, 4, 2, 1).  Lane 0 writes the tile's sum.  The
-// plain version in select_reduce_cuda.py adds in exactly this order, so the
-// two agree limb for limb.
+// Design.  Every (window, row, lane tile) is independent, so all of them
+// are on the grid: one warp per (window, tile), 4 warps a block for Fp and
+// 2 for Fp2, blockIdx.y the row (blockIdx.z is free for the reference's
+// proof-batch axis).  Thread j of tile t owns lanes t*32L + k*32 + j for k < L (a
+// warp's loads are coalesced) and sums its L selections in order into
+// output lane t*32 + j; the narrow tail reduction (msm_finish.cu) sums the
+// B / L output lanes.  A warp-level halving tree inside the tile would
+// leave 2/3 of the lanes idle (6 addition times for 63 additions at
+// L = 2); per-thread sums keep every lane busy for L - 1 additions.  The
+// running sum and the addition's temporaries live in shared memory
+// (point.cuh), so nothing spills; shared memory (9 or 12 slots a thread,
+// see kQSlots) sets the occupancy.
+// The lanes of a warp select different entries, so a warp's loads scatter
+// over 16 entries: with one record per lane each thread reads its entry
+// in 16-byte loads, where limb planes would cost a 32-byte sector for
+// each 4-byte limb.
+// The plain version in select_reduce_cuda.py adds in the same order, so
+// the two agree limb for limb.
 //
-// Bound: operations.  Each window costs one complete addition per lane
-// (12 field products, 36 base products for Fp2) against one table entry
-// read per lane (288 B for Fp at n = 24).
+// Bound: operations.  Each output lane costs L - 1 complete additions
+// (12 field products, 36 base products for Fp2) against one table record
+// read per lane (144 B for Fp at n = 24, 288 B for Fp2).
 #include <cuda_runtime.h>
 
-#include "field.cuh"
+#include "point.cuh"
 
 namespace {
 
 constexpr int kWarp = 32;
 
-template <class F>
 struct Planes {
-  const int32_t* tab[6];
   int32_t* out[6];
 };
 
-template <class F, int N>
-__device__ __forceinline__ void load_point(zk::Point<F>& P, const Planes<F>& pl, long long off,
-                                           long long B) {
-  typename F::E* coords[3] = {&P.x, &P.y, &P.z};
-#pragma unroll
-  for (int c = 0; c < 3; ++c)
-#pragma unroll
-    for (int q = 0; q < F::kComponents; ++q)
-      zk::load_fe<N>(F::comp(*coords[c], q), pl.tab[c * F::kComponents + q] + off, B);
-}
+// Where the selected entry Q of an addition is read from.  Fp2: straight
+// from its record in global memory as the addition needs it; the three
+// slots this saves give an SM a fourth block (5.6 ms to 3.9 ms at the
+// proof's G2 shape).  Fp: copied into three shared slots, which measured
+// about 4 % faster than the record reads at the proof's G1 shape (4.80
+// against 5.02 ms; an Fp product is short, so the reads' latency shows).
+// Both on an H100 80GB HBM3 at a 700 W power limit.
+template <class F>
+constexpr bool kQSlots = F::kComponents == 1;
+template <class F>
+constexpr int kSlots = kQSlots<F> ? 12 : 9;  // P, [Q,] six temporaries
+template <class F>
+constexpr int kThreads = (F::kComponents == 1 ? 4 : 2) * kWarp;
+template <class F>
+constexpr int kSmemBytes = kThreads<F> * kSlots<F> * zk::Slots<F>::kWords * 4;
+template <class F>
+constexpr int kBlocksPerSm = 227 * 1024 / (kSmemBytes<F> + 1024);
 
-template <class F, int N>
-__device__ __forceinline__ void shfl_point(zk::Point<F>& dst, zk::Point<F>& src, int h) {
-  typename F::E* s[3] = {&src.x, &src.y, &src.z};
-  typename F::E* d[3] = {&dst.x, &dst.y, &dst.z};
-#pragma unroll
-  for (int c = 0; c < 3; ++c)
-#pragma unroll
-    for (int q = 0; q < F::kComponents; ++q)
-#pragma unroll
-      for (int i = 0; i < N; ++i)
-        F::comp(*d[c], q).w[i] = __shfl_down_sync(0xffffffffu, F::comp(*s[c], q).w[i], h);
-}
-
-template <class F, int N>
-__global__ void __launch_bounds__(kWarp) select_reduce_kernel(
-    Planes<F> pl, const int32_t* __restrict__ digits, int W, int R, long long B, int L,
-    typename F::Consts consts) {
-  const int j = threadIdx.x;
-  const long long t = blockIdx.x;
+template <class F>
+__global__ void __launch_bounds__(kThreads<F>, kBlocksPerSm<F>)
+    select_reduce_kernel(const uint32_t* __restrict__ tab, const int32_t* __restrict__ digits,
+                         Planes pl, int W, int R, long long B, int L,
+                         typename F::Consts consts) {
+  extern __shared__ uint32_t smem[];
+  const int j = threadIdx.x % kWarp;
+  const long long tiles = B / (static_cast<long long>(kWarp) * L);
+  const long long g = (static_cast<long long>(blockIdx.x) * kThreads<F> + threadIdx.x) / kWarp;
+  if (g >= W * tiles) return;  // whole warps only; no block-wide barrier below
+  const int w = static_cast<int>(g / tiles);
+  const long long t = g - w * tiles;
   const int r = blockIdx.y;
-  const long long NT = B / (static_cast<long long>(kWarp) * L);
-  const long long plane = static_cast<long long>(2 * N) * B;  // one (n, B) table entry
-  for (int w = 0; w < W; ++w) {
-    zk::Point<F> acc, sel;
-    for (int k = 0; k < L; ++k) {
-      const long long lane = t * kWarp * L + static_cast<long long>(k) * kWarp + j;
-      const int d = digits[(static_cast<long long>(w) * R + r) * B + lane];
-      const long long off = (static_cast<long long>(d) * R + r) * plane + lane;
-      if (k == 0) {
-        load_point<F, N>(acc, pl, off, B);
-      } else {
-        load_point<F, N>(sel, pl, off, B);
-        zk::point_add<F>(acc, acc, sel, consts);
-      }
-    }
-    for (int h = kWarp / 2; h >= 1; h >>= 1) {
-      shfl_point<F, N>(sel, acc, h);
-      if (j < h) zk::point_add<F>(acc, acc, sel, consts);
-    }
-    if (j == 0) {
-      const long long o = (static_cast<long long>(w) * R + r) * (2 * N) * NT + t;
-      typename F::E* coords[3] = {&acc.x, &acc.y, &acc.z};
-#pragma unroll
-      for (int c = 0; c < 3; ++c)
-#pragma unroll
-        for (int q = 0; q < F::kComponents; ++q)
-          zk::store_fe<N>(F::comp(*coords[c], q), pl.out[c * F::kComponents + q] + o, NT);
+  const zk::Slots<F> all{smem + threadIdx.x, kThreads<F>};
+  const zk::Slots<F> P = all.at(0), T = all.at(3);
+  constexpr int kRecord = 3 * zk::Slots<F>::kWords;  // words of one table entry
+  const int32_t* dig = digits + (static_cast<long long>(w) * R + r) * B;
+  const long long lane0 = t * kWarp * L + j;
+  auto record = [&](int k) {  // table entry selected at this thread's k-th lane
+    const long long lane = lane0 + static_cast<long long>(k) * kWarp;
+    return zk::Record<F>{tab + ((static_cast<long long>(dig[lane]) * R + r) * B + lane) * kRecord};
+  };
+  zk::ld_record<F>(P, record(0));
+  for (int k = 1; k < L; ++k) {
+    if constexpr (kQSlots<F>) {
+      const zk::Slots<F> Q = all.at(9);
+      zk::ld_record<F>(Q, record(k));
+      zk::thread_add<F>(P, P, Q, T, consts);
+    } else {
+      zk::thread_add<F>(P, P, record(k), T, consts);
     }
   }
+  const long long NT = tiles * kWarp;
+  const long long o = (static_cast<long long>(w) * R + r) * (2 * F::kN) * NT + t * kWarp + j;
+  zk::st_point<F>(pl.out, o, NT, P);
 }
 
-template <class F, int N>
-int launch(const void* const* tab, const void* digits, void* const* out, int W, int R,
-           long long B, int L, typename F::Consts consts, cudaStream_t stream) {
-  Planes<F> pl;
-  for (int i = 0; i < 6; ++i) {
-    pl.tab[i] = static_cast<const int32_t*>(tab[i]);
-    pl.out[i] = static_cast<int32_t*>(out[i]);
-  }
-  const long long NT = B / (static_cast<long long>(kWarp) * L);
-  dim3 grid(static_cast<unsigned>(NT), static_cast<unsigned>(R));
-  select_reduce_kernel<F, N><<<grid, kWarp, 0, stream>>>(
-      pl, static_cast<const int32_t*>(digits), W, R, B, L, consts);
+template <class F>
+int launch(const void* tab, const void* digits, void* const* out, int W, int R, long long B,
+           int L, typename F::Consts consts, cudaStream_t stream) {
+  Planes pl;
+  for (int i = 0; i < 6; ++i) pl.out[i] = static_cast<int32_t*>(out[i]);
+  const long long threads = W * (B / L);  // one per output lane
+  cudaError_t err = cudaFuncSetAttribute(select_reduce_kernel<F>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes<F>);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  dim3 grid(static_cast<unsigned>((threads + kThreads<F> - 1) / kThreads<F>),
+            static_cast<unsigned>(R));
+  select_reduce_kernel<F><<<grid, kThreads<F>, kSmemBytes<F>, stream>>>(
+      static_cast<const uint32_t*>(tab), static_cast<const int32_t*>(digits), pl, W, R, B, L,
+      consts);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// tab: 6 device pointers (x0, x1, y0, y1, z0, z1; the c1 entries are unused
-// for fp2 = 0), digits: (W, R, B) int32, out: 6 device pointers to
-// (W, R, n16, B / (32 L)) int32 planes.  p_words: host array of n16/2 words;
+// tab: (16, R, B, 3 C n16/2) words (C = 2 for fp2, else 1), 16-byte
+// aligned; digits: (W, R, B) int32; out: 6 device pointers (x0, x1, y0,
+// y1, z0, z1; the c1 entries unused for fp2 = 0) to (W, R, n16, B / L)
+// int32 planes.  p_words: host array of n16/2 words;
 // np0 = -p^-1 mod 2^32; b3 = b3c0 (+ b3c1 u for fp2).  Returns
 // cudaGetLastError() after the launch, or -1 for an unsupported shape.
-extern "C" int zk_select_reduce(int n16, int fp2, const void* const* tab, const void* digits,
+extern "C" int zk_select_reduce(int n16, int fp2, const void* tab, const void* digits,
                                 void* const* out, int W, int R, long long B, int L,
                                 const uint32_t* p_words, uint32_t np0, int b3c0, int b3c1,
                                 void* stream) {
@@ -133,8 +140,8 @@ extern "C" int zk_select_reduce(int n16, int fp2, const void* const* tab, const 
   m.np0 = np0;
   if (fp2) {
     typename zk::Fp2Field<N>::Consts c{m, b3c0, b3c1};
-    return launch<zk::Fp2Field<N>, N>(tab, digits, out, W, R, B, L, c, s);
+    return launch<zk::Fp2Field<N>>(tab, digits, out, W, R, B, L, c, s);
   }
   typename zk::FpField<N>::Consts c{m, b3c0};
-  return launch<zk::FpField<N>, N>(tab, digits, out, W, R, B, L, c, s);
+  return launch<zk::FpField<N>>(tab, digits, out, W, R, B, L, c, s);
 }

@@ -23,12 +23,13 @@ import threading
 from zkmember_tpu_torch import _build
 
 CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
-SOURCES = ("mont_mul.cu", "mont_mul_bm.cu", "select_reduce.cu")
-HEADERS = ("field.cuh",)
+SOURCES = ("mont_mul.cu", "mont_mul_bm.cu", "select_reduce.cu", "msm_finish.cu")
+HEADERS = ("field.cuh", "point.cuh")
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 FLAGS = ARCH + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-LAUNCHES = {"mont_mul": 0, "select_reduce_fp": 0, "select_reduce_fp2": 0, "mont_mul_bm": 0}
+LAUNCHES = {"mont_mul": 0, "select_reduce_fp": 0, "select_reduce_fp2": 0, "mont_mul_bm": 0,
+            "msm_finish_fp": 0, "msm_finish_fp2": 0}
 
 _lock = threading.Lock()
 _lib = None
@@ -98,10 +99,14 @@ def library():
         lib.zk_mont_mul_bm.argtypes = [i32, vp, vp, vp, ll, u32p, u32, vp]
         lib.zk_mont_mul_bm.restype = i32
         lib.zk_select_reduce.argtypes = [
-            i32, i32, ctypes.POINTER(vp), vp, ctypes.POINTER(vp), i32, i32, ll, i32,
-            u32p, u32, i32, i32, vp,
+            i32, i32, vp, vp, ctypes.POINTER(vp), i32, i32, ll, i32, u32p, u32, i32, i32, vp,
         ]
         lib.zk_select_reduce.restype = i32
+        vpp = ctypes.POINTER(vp)
+        lib.zk_msm_finish.argtypes = [
+            i32, i32, vpp, vpp, vpp, vpp, i32, i32, ll, i32, u32p, u32, u32p, i32, i32, vp,
+        ]
+        lib.zk_msm_finish.restype = i32
         _lib = lib
         return _lib
 

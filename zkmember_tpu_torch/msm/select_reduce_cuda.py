@@ -1,17 +1,20 @@
 """K1: fused Straus window select plus lane reduction, a CUDA kernel and its plain version.
 
 Replaces the Pallas kernel ``zkmember_tpu/msm/pallas_msm.py::select_reduce``.
-The kernel is ``csrc/select_reduce.cu``: one 32-thread block per (lane
-tile, row) with the window loop inside the block; thread j of tile t sums
-its lanes t*32L + k*32 + j (k < L) in order, then the warp halves its 32
-sums with shuffles.  Bound: operations (one complete addition per lane and
-window).
+The kernel is ``csrc/select_reduce.cu``: one warp per (window, lane tile),
+every window, row and tile on the grid; thread j of tile t sums its lanes
+t*TL + k*T + j (k < L) in order into output lane t*T + j.  The narrow tail
+reduction (``finish_cuda``) sums the B / L output lanes.  The table has one
+layout, on every device: ``pack_records`` packs the limb planes into one
+contiguous record per (entry, row, lane), so a thread's scattered select
+reads whole records.  Bound: operations (one complete addition per lane
+and window).
 
-Planes (per coordinate component, int32, 16-bit limbs, Montgomery form):
+Tensors (int32, 16-bit limbs, Montgomery form):
 
-    tab     (16, R, n, B)   [0..15] P_i, entry 0 the identity (0, 1, 0)
-    digits  (W, R, B)       4-bit windows in [0, 16), most significant first
-    out     (W, R, n, NT)   per-tile projective window sums, NT = B / (T L)
+    records (16, R, B, 3 C n/2)   [0..15] P_i, entry 0 the identity (0, 1, 0)
+    digits  (W, R, B)             4-bit windows in [0, 16), most significant first
+    out     (W, R, n, B/L)        per-thread projective window sums, per component
 
 ``select_reduce_plain`` adds in exactly the kernel's order, so the two
 agree limb for limb.  A CUDA tensor goes to the kernel; a CPU tensor takes
@@ -29,7 +32,7 @@ from zkmember_tpu_torch import kernels
 from zkmember_tpu_torch.curves import device as cdv
 
 WARP = 32
-LANES_PER_THREAD = 2
+LANES_PER_THREAD = 16
 
 
 def tile_shape(B: int) -> tuple[int, int]:
@@ -54,35 +57,32 @@ def _map(f, c):
     return f(c)
 
 
-def select_reduce_plain(ops, tab, digits):
+def select_reduce_plain(ops, records, digits):
     """Plain PyTorch version on any device (same add order as the kernel)."""
+    tab = unpack_records(records, isinstance(ops.b3, tuple))
     R, n, B = _components(tab[0])[0].shape[1:]
     W = digits.shape[0]
     T, L = tile_shape(B)
-    NT = B // (T * L)
-    if NT * T * L != B:
+    tiles = B // (T * L)
+    if tiles * T * L != B:
         raise ValueError(f"{B} lanes do not split into tiles of {T}x{L}")
     idx = digits.long().unsqueeze(-2).expand(W, R, n, B)
 
     def select(c):
         sel = torch.gather(c, 0, idx)  # (W, R, n, B)
-        return sel.reshape(W, R, n, NT, L, T).permute(0, 1, 3, 4, 2, 5)
+        return sel.reshape(W, R, n, tiles, L, T).permute(0, 1, 3, 4, 2, 5)
 
-    P = tuple(_map(select, c) for c in tab)  # (W, R, NT, L, n, T)
+    P = tuple(_map(select, c) for c in tab)  # (W, R, tiles, L, n, T)
     acc = tuple(_map(lambda c: c[:, :, :, 0], x) for x in P)
     for k in range(1, L):
         acc = cdv.swp_add(ops, acc, tuple(_map(lambda c: c[:, :, :, k], x) for x in P))
-    h = T // 2
-    while h >= 1:
-        left = tuple(_map(lambda c: c[..., :h], x) for x in acc)
-        right = tuple(_map(lambda c: c[..., h : 2 * h], x) for x in acc)
-        acc = cdv.swp_add(ops, left, right)
-        h //= 2
-    # (W, R, NT, n, 1) -> (W, R, n, NT)
-    return tuple(_map(lambda c: c[..., 0].permute(0, 1, 3, 2).contiguous(), x) for x in acc)
+    # (W, R, tiles, n, T) -> (W, R, n, B / L)
+    return tuple(_map(lambda c: c.permute(0, 1, 3, 2, 4).reshape(W, R, n, tiles * T), x)
+                 for x in acc)
 
 
-def _kernel_consts(ops):
+def kernel_consts(ops):
+    """(fp2, base field spec, (b3c0, b3c1)) of a curve's ops for the kernels."""
     fp2 = isinstance(ops.b3, tuple)
     spec = ops.F.spec.base if fp2 else ops.F.spec
     if fp2 and ops.F.spec.nonresidue != spec.p - 1:
@@ -91,38 +91,52 @@ def _kernel_consts(ops):
     return fp2, spec, b3
 
 
-def select_reduce_cuda(ops, tab, digits):
-    """Launch the CUDA kernel (one launch for all windows and rows)."""
-    fp2, spec, b3 = _kernel_consts(ops)
+def pack_records(tab):
+    """The table's layout: coords (16, [R,] n, B) -> (16, R, B, 3 C n/2)
+    int32, each lane's entry one contiguous record of words lo | hi << 16
+    (x0 [x1] y0 [y1] z0 [z1]); a table without a row axis gets R = 1."""
     planes = [c for coord in tab for c in _components(coord)]
-    if len(planes) != (6 if fp2 else 3):
-        raise ValueError("table must hold 3 coordinates (pairs for Fp2)")
-    shape = planes[0].shape
-    if len(shape) != 4 or shape[0] != 16 or shape[2] != spec.n:
-        raise ValueError(f"table planes must be (16, R, {spec.n}, B), got {tuple(shape)}")
-    _, R, n, B = shape
+    if planes[0].ndim == 3:
+        planes = [p[:, None] for p in planes]
+    words = [p[:, :, 0::2] | (p[:, :, 1::2] << 16) for p in planes]  # (16, R, n/2, B)
+    return torch.cat(words, dim=2).transpose(2, 3).contiguous()
+
+
+def unpack_records(records, fp2: bool):
+    """``pack_records``' inverse: records -> coords (16, R, n, B)."""
+    planes = []
+    for w in records.chunk(6 if fp2 else 3, dim=-1):  # (16, R, B, n/2) each
+        w = w.transpose(2, 3)
+        planes.append(torch.stack([w & 0xFFFF, (w >> 16) & 0xFFFF], 3).flatten(2, 3))
+    return _rebuild(planes, fp2)
+
+
+def select_reduce_cuda(ops, records, digits):
+    """Launch the CUDA kernel (one launch for all windows and rows)."""
+    fp2, spec, b3 = kernel_consts(ops)
+    n, C = spec.n, 6 if fp2 else 3
+    shape = tuple(records.shape)
+    if len(shape) != 4 or shape[0] != 16 or shape[3] != C * n // 2:
+        raise ValueError(f"records must be (16, R, B, {C * n // 2}), got {shape}")
+    _, R, B, _ = shape
     W = digits.shape[0]
     T, L = tile_shape(B)
     if T != WARP or B % (T * L):
-        raise ValueError(f"the kernel needs a multiple of {WARP * LANES_PER_THREAD} lanes, got {B}")
-    dev = planes[0].device
-    for p in planes + [digits]:
+        raise ValueError(f"the kernel needs whole tiles of {WARP} threads x {L} lanes, got {B} lanes")
+    dev = records.device
+    for p in (records, digits):
         if not p.is_cuda or p.device != dev or p.dtype != torch.int32 or not p.is_contiguous():
-            raise ValueError("select_reduce needs contiguous int32 planes on one CUDA device")
-        if p is not digits and p.shape != shape:
-            raise ValueError("table planes differ in shape")
+            raise ValueError("select_reduce needs contiguous int32 tensors on one CUDA device")
     if tuple(digits.shape) != (W, R, B):
         raise ValueError(f"digits must be (W, {R}, {B}), got {tuple(digits.shape)}")
-    NT = B // (T * L)
-    outs = [torch.empty((W, R, n, NT), dtype=torch.int32, device=dev) for _ in planes]
-    tab_ptrs = (ctypes.c_void_p * 6)(*([p.data_ptr() for p in planes] + [0] * (6 - len(planes))))
+    outs = [torch.empty((W, R, n, B // L), dtype=torch.int32, device=dev) for _ in range(C)]
     out_ptrs = (ctypes.c_void_p * 6)(*([o.data_ptr() for o in outs] + [0] * (6 - len(outs))))
     p_words = np.ascontiguousarray(spec.p_words)
     lib = kernels.library()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.zk_select_reduce(
-            n, int(fp2), tab_ptrs, digits.data_ptr(), out_ptrs, W, R, B, L,
+            n, int(fp2), records.data_ptr(), digits.data_ptr(), out_ptrs, W, R, B, L,
             p_words.ctypes.data_as(ctypes.POINTER(ctypes.c_uint32)), spec.np32,
             int(b3[0]), int(b3[1]), stream,
         )
@@ -132,8 +146,8 @@ def select_reduce_cuda(ops, tab, digits):
     return _rebuild(outs, fp2)
 
 
-def select_reduce(ops, tab, digits):
+def select_reduce(ops, records, digits):
     """Kernel for CUDA tensors, plain version for CPU tensors."""
     if digits.is_cuda:
-        return select_reduce_cuda(ops, tab, digits)
-    return select_reduce_plain(ops, tab, digits)
+        return select_reduce_cuda(ops, records, digits)
+    return select_reduce_plain(ops, records, digits)

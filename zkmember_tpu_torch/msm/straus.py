@@ -4,11 +4,11 @@
     sum_i s_i P_i  =  sum_w 16^w ( sum_i T_i[d_{i,w}] )
 
 with T_i = [0..15] P_i the per-point table (built once per proving key by
-``table_program``) and d_{i,w} the w-th 4-bit digit of s_i.  Kernel K1
-(``select_reduce_cuda``) selects and reduces each lane tile per window;
-``tree_reduce_lanes`` finishes the narrow tail and ``horner_join`` folds
-the window sums.  Zero scalars select entry 0, the identity, so padded
-lanes vanish.
+``table_program``, in K1's packed layout) and d_{i,w} the w-th 4-bit
+digit of s_i.  Kernel K1 (``select_reduce_cuda``) selects and reduces
+each lane tile per window; ``tree_reduce_lanes`` finishes the narrow tail
+and ``horner_join`` folds the window sums, both in one kernel on the card (``finish_cuda``).  Zero
+scalars select entry 0, the identity, so padded lanes vanish.
 """
 
 from __future__ import annotations
@@ -18,7 +18,7 @@ import torch
 
 from zkmember_tpu_torch.curves import device as cdv
 from zkmember_tpu_torch.fields.spec import LIMB_BITS
-from zkmember_tpu_torch.msm import select_reduce_cuda
+from zkmember_tpu_torch.msm import finish_cuda, select_reduce_cuda
 
 WINDOW_BITS = 4
 TABLE = 1 << WINDOW_BITS
@@ -78,9 +78,10 @@ def small_table(ops, P1):
 
 
 def table_program(ops, X, Y):
-    """Straus tables (16, ..., n, B) of the affine points (X, Y); they depend
-    only on the proving key, so callers build them once."""
-    return small_table(ops, cdv.swp_from_affine(ops, X, Y))
+    """Straus table of the affine points (X, Y) (..., n, B), as K1's packed
+    records (16, R, B, 3 C n/2) (``select_reduce_cuda.pack_records``); it
+    depends only on the proving key, so callers build it once."""
+    return select_reduce_cuda.pack_records(small_table(ops, cdv.swp_from_affine(ops, X, Y)))
 
 
 def digits_from_limbs(z, nwin: int):
@@ -114,25 +115,22 @@ def _lanes_leading(S):
 
 
 def msm_precomp_program(ops, tab, nwin: int, z, mark=None, prefix: str = ""):
-    """MSM from precomputed tables through kernel K1, then the narrow tail
-    reduction and the Horner join.  tab coords (16, [R,] n, B); z
-    (..., [R,] nl, B) canonical scalar limbs.  Returns projective coords
-    ([R,] n, 1).  mark: optional phase clock (utils.obs.PhaseClock),
-    called after each stage as mark(prefix + stage)."""
+    """MSM from a precomputed table through kernel K1, then the narrow tail
+    reduction and the Horner join (``finish_cuda``).  tab: table_program's
+    records (16, R, B, 3 C n/2); z (..., [R,] nl, B) canonical scalar limbs.
+    Returns projective coords ([R,] n, 1).  mark: optional phase clock
+    (utils.obs.PhaseClock), called after each stage as mark(prefix + stage)."""
     mark = mark or (lambda name: None)
     digits = digits_from_limbs(z, nwin).contiguous()  # (W, [R,] B)
-    squeeze = digits.ndim == 2  # no leading row axis: lift to R = 1
+    squeeze = digits.ndim == 2  # no leading row axis: R = 1
     if squeeze:
         digits = digits[:, None]
-        tab = tuple(_map_coord(lambda c: c[:, None], x) for x in tab)
     S = select_reduce_cuda.select_reduce(ops, tab, digits)
     if squeeze:
         S = tuple(_map_coord(lambda c: c[:, 0], x) for x in S)
     mark(prefix + "select_reduce")
-    S = tree_reduce_lanes(ops, S)
-    mark(prefix + "tail")
-    acc = horner_join(ops, S)
-    mark(prefix + "horner")
+    acc = finish_cuda.msm_finish(ops, S)
+    mark(prefix + "finish")
     return acc
 
 
