@@ -8,7 +8,10 @@ Phases (each raises on failure, so the script exits non-zero):
   device  the card's name and power limit (nvidia-smi)
   build   nvcc builds the hand-written kernels (zkmember_tpu_torch/csrc)
   k2      Montgomery-product kernel against its plain PyTorch version on the
-          card, bit for bit, at BLS12-381 Fq/Fr and BW6-761 Fq widths
+          card, bit for bit, at BLS12-381 Fq/Fr and BW6-761 Fq widths; then
+          timed at each operand shape of one prove_lm proof (k2_proof_shapes)
+          and at one wave of the per-key table build: the wrapper (ms), the
+          kernel alone (device_ms) and the host's time per call (host_us)
   k1      select+reduce kernel (G1 Fp, G2 Fp2) against its plain version
           from random points at R=1, B=4096, W=64, limb for limb; then the
           finish kernel (tail reduction + Horner join) on its output against
@@ -20,12 +23,14 @@ Phases (each raises on failure, so the script exits non-zero):
           and tampered proofs must not; one more proof reports seconds per
           phase (synchronized at each phase); one more proof holds the first
           kernel call of every distinct shape against its plain version on
-          the same inputs; then each kernel is timed at the proof's shapes
-          beside its plain version, and the outputs must agree
+          the same inputs (K2's shapes and launches must match the table
+          phase k2 timed, and no K2 operand may be copied); then K1 and the
+          finish are timed at the proof's shapes beside their plain
+          versions, and the outputs must agree
   k3      batch-major Montgomery-product kernel against its plain version,
           bit for bit, at n = 16, 24 and 48 (random rows, the rows 0, 1 and
           p - 1, a broadcast (n,) operand), then timed at the v1 path's
-          shapes beside its plain version
+          shapes beside its plain version (ms, device_ms, host_us)
   setup   Groth16 setup of the 16-member circuit on the card, with the rng
           that made the committed key: all twelve query arrays of
           artifacts/groth16_bls12_381_16.npz, beta/delta, the vk and the
@@ -36,7 +41,7 @@ Phases (each raises on failure, so the script exits non-zero):
           verifies, tampered ones do not, and it equals the limb-major
           prover's proof from the committed key with the same rng state;
           one more proof holds the first K3 call at every distinct operand
-          shape against the plain version
+          shape against the plain version (no K3 operand may be copied)
   cli     python -m zkmember_tpu_torch.app.cli in subprocesses: register 16
           members (15 through `interactive`, one through `register`),
           `root`, `prove` (inline verification true), `verify` (exit 0) and
@@ -71,11 +76,13 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 # multiplies only, so they are lower bounds.
 HBM_BYTES_PER_S = 3.35e12
 IMAD_PER_S = 67e12 / 4
+HOLD_CYCLES = 5_000_000  # about 3 ms of spinning at the H100's clocks
 
 RESULTS: dict = {}
 STATE: dict = {}  # keys and circuits handed from one phase to the next
 CIRCUITS: dict = {}  # members -> (circuit, public inputs, rng state after the CRH params)
 # prove_lm's path
+PROVE_M = 1 << 14  # the domain of the 16-member circuit's committed key
 PROVE_KERNELS = ("mont_mul", "select_reduce_fp", "select_reduce_fp2", "msm_finish_fp",
                  "msm_finish_fp2")
 ERRS: dict = {}  # kernel -> largest limb difference from its plain version
@@ -104,6 +111,46 @@ def cuda_ms(fn, reps: int = 20, rounds: int = 3, warmup: bool = True) -> float:
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end) / reps)
+    return statistics.median(times)
+
+
+def device_ms(fn, reps: int = 20, rounds: int = 3) -> float:
+    """Milliseconds of one fn() on the card alone: as cuda_ms, but the card
+    is held busy (a spin kernel of HOLD_CYCLES) while the host queues the
+    `reps` calls, so the events time the card, not the host's queueing."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(rounds):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(HOLD_CYCLES)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / reps)
+    return statistics.median(times)
+
+
+def host_us(fn, reps: int = 200, rounds: int = 3) -> float:
+    """Microseconds of host time to queue one fn(): the host clock around
+    `reps` back-to-back calls (no synchronization inside), divided by `reps`;
+    the median of `rounds`."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(rounds):
+        t = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        times.append((time.perf_counter() - t) / reps * 1e6)
+        torch.cuda.synchronize()
     return statistics.median(times)
 
 
@@ -165,6 +212,25 @@ def phase_k2(np_rng):
         want = lm_cuda.mont_mul_plain(spec, a, b)
         _hold("mont_mul", f"{spec.name} {shape}", got, want)
         log(f"K2 mont_mul {spec.name} {shape}: bit-exact against the plain version")
+    RESULTS["mont_mul_shapes"] = time_k2(np_rng, k2_proof_shapes(PROVE_M), PROVE_M)
+    RESULTS["mont_mul"] = RESULTS["mont_mul_shapes"][0]  # the shape of most launches
+
+
+def k2_proof_shapes(M: int) -> dict:
+    """K2's operand shapes in one prove_lm proof of domain size M over
+    BLS12-381 Fr, each with its launches: the H pipeline of ntt/lm.py (the
+    prove phase checks this table against the proof's own calls)."""
+    from zkmember_tpu_torch.fields import spec as fs
+
+    f, n, h, log_m = fs.BLS_FR.name, fs.BLS_FR.n, M // 2, M.bit_length() - 1
+    return {
+        (f, (3, n, h), (n, h)): 2 * log_m,  # the stages of the stacked iNTT and coset NTT
+        (f, (n, h), (n, h)): log_m,  # the stages of the coset iNTT
+        (f, (3, n, M), (n, 1)): 1,  # 1 / N
+        (f, (3, n, M), (n, M)): 1,  # the coset scale g^i
+        (f, (n, M), (n, M)): 2,  # A B; the coset scale g^-i / N
+        (f, (n, M), (n, 1)): 2,  # 1 / Z_H; out of Montgomery form
+    }
 
 
 def _host_points(curve, gen, count, rng):
@@ -312,7 +378,7 @@ def phase_prove(np_rng):
     import torch
 
     from zkmember_tpu_torch import kernels
-    from zkmember_tpu_torch.fields import lm_cuda, spec as fs
+    from zkmember_tpu_torch.fields import spec as fs
     from zkmember_tpu_torch.msm import finish_cuda as fin, select_reduce_cuda as k1
     from zkmember_tpu_torch.snark import groth16, prove_lm
     from zkmember_tpu_torch.utils import checkpoint
@@ -365,24 +431,15 @@ def phase_prove(np_rng):
     if groth16.verify(vk, [public[0], (public[1] + 1) % keys.cfg.r], proof):
         raise AssertionError("the proof verifies for a wrong public input")
     log("proof verifies; negated C and a wrong public input are rejected")
-    checked_proof(keys, cs, rng)
+    k2_shapes = checked_proof(keys, cs, rng)
+    if k2_shapes != k2_proof_shapes(keys.M):
+        raise AssertionError(f"the proof's K2 shapes {k2_shapes} differ from the table "
+                             f"{k2_proof_shapes(keys.M)} that phase k2 times")
 
-    # kernel times at the proof's shapes, each beside its plain version
+    # K1 and finish times at the proof's shapes, each beside its plain version
+    # (phase k2 times K2 at the proof's shapes)
     spec = fs.BLS_FQ
     imads_per_mul = _imads(spec)
-    # one product wave of the G1 table build: 6 stacked products of 4 rows
-    shape = (6 * 4, spec.n, keys.B1)
-    a = rand_planes(np_rng, spec, shape)
-    b = rand_planes(np_rng, spec, shape)
-    n_elem = shape[0] * shape[2]
-    _hold("mont_mul", f"timed {shape}", lm_cuda.mont_mul_cuda(spec, a, b),
-          lm_cuda.mont_mul_plain(spec, a, b))
-    RESULTS["mont_mul"] = {
-        "shape": list(shape),
-        "ms": cuda_ms(lambda: lm_cuda.mont_mul_cuda(spec, a, b)),
-        "plain_ms": cuda_ms(lambda: lm_cuda.mont_mul_plain(spec, a, b), reps=1),
-        "bound": _bound(3 * n_elem * spec.n * 4, n_elem * imads_per_mul),
-    }
     W = keys.nwin
     for g2, tab, R, B in ((False, keys.g1_tab, 4, keys.B1), (True, keys.g2_tab, 1, keys.B2)):
         ops = keys.ops2 if g2 else keys.ops1
@@ -419,8 +476,7 @@ def phase_prove(np_rng):
         }
         log(f"{fname}: the join is a chain of {chain} dependent additions of "
             f"{prods * imads_per_mul} IMADs per row")
-    for k in ("mont_mul", "select_reduce_fp", "select_reduce_fp2", "msm_finish_fp",
-              "msm_finish_fp2"):
+    for k in ("select_reduce_fp", "select_reduce_fp2", "msm_finish_fp", "msm_finish_fp2"):
         r = RESULTS[k]
         log(f"{k} at {r['shape']}: kernel {r['ms']:.3f} ms, plain {r['plain_ms']:.1f} ms, "
             f"bound {r['bound'][0]:.4f} ms ({r['bound'][1]})")
@@ -438,29 +494,43 @@ def checked_proof(keys, cs, rng):
     mont_mul_cuda, select_reduce_cuda = lm_cuda.mont_mul_cuda, k1.select_reduce_cuda
     msm_finish_cuda = fin.msm_finish_cuda
     seen = set()
+    counts: dict = {}  # (field, shape of a, shape of b) -> K2 launches of the proof itself
+    in_plain = [0]  # the plain K1 and finish run their products on K2 too: not counted
 
     def mont_mul_checked(spec, a, b):
         out = mont_mul_cuda(spec, a, b)
         key = (spec.name, tuple(a.shape), tuple(b.shape))
         if key not in seen:
             seen.add(key)
+            g = lm_cuda.launch_args(spec.n, a.shape, a.stride(), b.shape, b.stride())
+            if g.copy_a or g.copy_b:
+                raise AssertionError(f"K2 copies an operand at {key}")
             _hold("mont_mul", f"proof {spec.name} {key[1]} x {key[2]}", out,
                   lm_cuda.mont_mul_plain(spec, a, b))
+        if not in_plain[0]:
+            counts[key] = counts.get(key, 0) + 1
         return out
+
+    def plain(fn, *args):
+        in_plain[0] += 1
+        try:
+            return fn(*args)
+        finally:
+            in_plain[0] -= 1
 
     def select_reduce_checked(ops, tab, digits):
         out = select_reduce_cuda(ops, tab, digits)
         W, R, B = digits.shape
         name = "select_reduce_fp2" if isinstance(ops.b3, tuple) else "select_reduce_fp"
         _hold(name, f"proof W={W} R={R} B={B}", out,
-              select_reduce_plain_sliced(ops, tab, digits))
+              plain(select_reduce_plain_sliced, ops, tab, digits))
         return out
 
     def msm_finish_checked(ops, S):
         out = msm_finish_cuda(ops, S)
         c = S[0][0] if isinstance(S[0], tuple) else S[0]
         name = "msm_finish_fp2" if isinstance(ops.b3, tuple) else "msm_finish_fp"
-        _hold(name, f"proof {tuple(c.shape)}", out, fin.msm_finish_plain(ops, S))
+        _hold(name, f"proof {tuple(c.shape)}", out, plain(fin.msm_finish_plain, ops, S))
         return out
 
     lm_cuda.mont_mul_cuda, k1.select_reduce_cuda = mont_mul_checked, select_reduce_checked
@@ -473,6 +543,70 @@ def checked_proof(keys, cs, rng):
         fin.msm_finish_cuda = msm_finish_cuda
     log(f"checked proof in {time.time() - t:.1f}s: K2 bit-exact at {len(seen)} distinct "
         f"operand shapes, K1 and the finish limb-exact at both of the proof's MSMs")
+    if sum(counts.values()) != RESULTS["launches"]["mont_mul"]:
+        raise AssertionError(f"the checked proof's K2 calls {counts} differ from the timed proof's")
+    return counts
+
+
+def _plane(np_rng, spec, shape):
+    """Random int32 planes of any (..., n, B) shape (values in [0, p))."""
+    import math
+
+    lead, B = math.prod(shape[:-2]), shape[-1]
+    if B < 4:  # random lanes only (rand_planes puts 0 and p - 1 in lanes 0, 1)
+        return rand_planes(np_rng, spec, (lead, shape[-2], 4))[..., 4 - B:].reshape(shape).contiguous()
+    return rand_planes(np_rng, spec, (lead, shape[-2], B)).reshape(shape)
+
+
+def time_k2(np_rng, proof_shapes: dict, lanes: int):
+    """K2 at each operand shape of one prove_lm proof (most launches first),
+    then at one product wave of the per-key G1 table build (6 stacked
+    products of 4 rows, `lanes` wide): the wrapper (`ms`), the kernel alone
+    (`device_ms`), the host's time to queue one wrapper call (`host_us`)."""
+    from zkmember_tpu_torch import kernels
+    from zkmember_tpu_torch.fields import lm_cuda, spec as fs
+
+    names = {s.name: s for s in (fs.BLS_FR, fs.BLS_FQ, fs.BW6_FQ)}
+    cases = [(names[f], sa, sb, k) for (f, sa, sb), k in
+             sorted(proof_shapes.items(), key=lambda kv: -kv[1])]
+    wide = (6 * 4, fs.BLS_FQ.n, lanes)
+    cases.append((fs.BLS_FQ, wide, wide, 0))
+    lib = kernels.library()
+    out = []
+    for spec, sa, sb, launches in cases:
+        a, b = _plane(np_rng, spec, sa), _plane(np_rng, spec, sb)
+        got = lm_cuda.mont_mul_cuda(spec, a, b)
+        _hold("mont_mul", f"timed {spec.name} {sa} x {sb}", got,
+              lm_cuda.mont_mul_plain(spec, a, b))
+        raw, keep = raw_launch(lib.zk_mont_mul, lm_cuda.prepare, spec, a, b)
+        n_elem = got.numel() // spec.n
+        r = {
+            "field": spec.name, "shape": list(sa), "operand_b": list(sb),
+            "launches": launches, "per": "proof" if launches else "key",
+            "ms": cuda_ms(lambda: lm_cuda.mont_mul_cuda(spec, a, b)),
+            "device_ms": device_ms(raw),
+            "host_us": host_us(lambda: lm_cuda.mont_mul_cuda(spec, a, b)),
+            "plain_ms": cuda_ms(lambda: lm_cuda.mont_mul_plain(spec, a, b), reps=1),
+            "bound": _bound((a.numel() + b.numel() + got.numel()) * 4,
+                            n_elem * _imads(spec)),
+        }
+        del keep
+        out.append(r)
+        log(f"K2 {spec.name} {sa} x {sb} ({launches or 'per key'}): wrapper {r['ms']:.4f} ms, "
+            f"kernel {r['device_ms']:.4f} ms, host {r['host_us']:.1f} us a call, plain "
+            f"{r['plain_ms']:.2f} ms, bound {r['bound'][0]:.4f} ms ({r['bound'][1]})")
+    return out
+
+
+def raw_launch(fn, prepare, spec, a, b):
+    """One raw launch of a field-product kernel (`fn`, the library's entry) on
+    a and b, its arguments prepared once by the wrapper's `prepare`: calling
+    it queues the kernel alone.  Returns it and the tensors it points into."""
+    import torch
+
+    args, out, operands = prepare(spec, a, b)
+    stream = torch.cuda.current_stream().cuda_stream
+    return (lambda: fn(*args, stream)), (out, operands)
 
 
 def _bound(nbytes: float, imads: float):
@@ -597,6 +731,9 @@ def phase_k3(np_rng):
     # stacked transforms and one), the fixed-base step's six stacked products
     # over a 16,384-row tile, and the widest Pippenger wave (six stacked
     # products over the (32 windows, 8192 pairs) grid)
+    from zkmember_tpu_torch import kernels
+
+    lib = kernels.library()
     timed = []
     for spec, shape, b_shape in ((fs.BLS_FR, (8192, 16), (8192, 16)),
                                  (fs.BLS_FR, (3, 8192, 16), (8192, 16)),
@@ -608,14 +745,19 @@ def phase_k3(np_rng):
               mont_mul_bm_plain_rows(spec, a, b))
         rows = a.numel() // spec.n
         nbytes = (a.numel() + b.numel() + a.numel()) * 4
+        raw, keep = raw_launch(lib.zk_mont_mul_bm, field_cuda.prepare, spec, a, b)
         timed.append({
             "shape": list(shape), "operand_b": list(b.shape),
             "ms": cuda_ms(lambda: k3(spec, a, b)),
+            "device_ms": device_ms(raw),
+            "host_us": host_us(lambda: k3(spec, a, b)),
             "plain_ms": cuda_ms(lambda: mont_mul_bm_plain_rows(spec, a, b), reps=1),
             "bound": _bound(nbytes, rows * _imads(spec)),
         })
+        del keep
         r = timed[-1]
-        log(f"K3 at {shape} x {tuple(b.shape)}: kernel {r['ms']:.4f} ms, plain "
+        log(f"K3 at {shape} x {tuple(b.shape)}: wrapper {r['ms']:.4f} ms, kernel "
+            f"{r['device_ms']:.4f} ms, host {r['host_us']:.1f} us a call, plain "
             f"{r['plain_ms']:.2f} ms, bound {r['bound'][0]:.4f} ms ({r['bound'][1]})")
     RESULTS["mont_mul_bm_shapes"] = timed
     RESULTS["mont_mul_bm"] = timed[2]  # the fixed-base / curve-op wave
@@ -681,12 +823,17 @@ def checked_v1_proof(pk, cs, rng):
 
     k3 = field_cuda.mont_mul_bm_cuda
     seen = set()
+    copied = []
 
     def checked(spec, a, b):
         out = k3(spec, a, b)
         key = (spec.name, tuple(a.shape), tuple(b.shape))
         if key not in seen:
             seen.add(key)
+            g = field_cuda.launch_args(spec.n, a.shape, a.stride(), a.data_ptr() % 16 == 0,
+                                       b.shape, b.stride(), b.data_ptr() % 16 == 0)
+            if g.copy_a or g.copy_b:
+                copied.append((key, tuple(a.stride()), tuple(b.stride())))
             _hold("mont_mul_bm", f"v1 proof {spec.name} {key[1]} x {key[2]}", out,
                   mont_mul_bm_plain_rows(spec, a, b))
         return out
@@ -698,7 +845,9 @@ def checked_v1_proof(pk, cs, rng):
     finally:
         field_cuda.mont_mul_bm_cuda = k3
     log(f"checked v1 proof in {time.time() - t:.1f}s: K3 bit-exact at {len(seen)} "
-        "distinct operand shapes")
+        f"distinct operand shapes; operands copied before the launch at {copied or 'none'}")
+    if copied:
+        raise AssertionError(f"K3 copies an operand in the v1 proof: {copied}")
     return proof
 
 
@@ -894,6 +1043,7 @@ def main() -> int:
             "mont_mul_bm_launches": {"setup": RESULTS["launches_setup"]["mont_mul_bm"],
                                      "prove_v1": RESULTS["launches_v1"]["mont_mul_bm"]},
             "mont_mul_bm_shapes": RESULTS["mont_mul_bm_shapes"],
+            "mont_mul_shapes": RESULTS["mont_mul_shapes"],
             "device": RESULTS["device"], "nvidia_smi": RESULTS["smi"],
         }))
         print(RESULTS["smi"])
@@ -918,7 +1068,7 @@ def main() -> int:
             # launches of the path that runs the kernel: prove_lm's timed
             # proof for K1/K2, the v1 timed proof for K3
             runs = RESULTS["launches" if name in PROVE_KERNELS else "launches_v1"]
-            rows.append({
+            row = {
                 "name": name, "route": "cuda", "source": src, "replaces": rep,
                 "launches": runs[name], "max_abs_err": ERRS[name],
                 "check": f"bit-exact against the plain version at {len(CHECKS[name])} "
@@ -926,7 +1076,11 @@ def main() -> int:
                 "ms": r["ms"], "plain_ms": r["plain_ms"],
                 "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
                 "library_ms": None, "shape": r["shape"],
-            })
+            }
+            for k in ("operand_b", "device_ms", "host_us"):  # the field products
+                if k in r:
+                    row[k] = r[k]
+            rows.append(row)
         print(json.dumps({"kernels": rows}))
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),

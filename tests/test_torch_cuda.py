@@ -50,6 +50,59 @@ def test_mont_mul_kernel_matches_plain(spec):
     assert torch.equal(lm_cuda.mont_mul(spec, a, c), lm_cuda.mont_mul_plain(spec, a, c))
 
 
+# (a's shape, b's shape) with n = -1 for the limb axis: the H pipeline's
+# broadcast patterns, an odd lane count, K = 1 and B = 1
+K2_PATTERNS = [((3, -1, 501), (-1, 501)), ((-1, 501), (-1, 501)), ((3, -1, 1002), (-1, 1)),
+               ((3, -1, 1002), (-1, 1002)), ((-1, 1002), (-1, 1)), ((-1, 1), (-1, 1)),
+               ((5, -1, 1), (-1, 1)), ((1, -1, 333), (4, -1, 333))]
+
+
+def _fill(shape, n):
+    return tuple(n if d == -1 else d for d in shape)
+
+
+@pytest.mark.parametrize("sa,sb", K2_PATTERNS, ids=lambda s: "x".join(map(str, s)))
+@pytest.mark.parametrize("spec", [fs.BLS_FR, fs.BLS_FQ, fs.BW6_FQ], ids=lambda s: s.name)
+def test_mont_mul_kernel_broadcast_patterns(spec, sa, sb):
+    _need_card()
+    sa, sb = _fill(sa, spec.n), _fill(sb, spec.n)
+
+    def planes(shape, seed):
+        lead = int(np.prod(shape[:-2]))
+        return _planes(spec, (lead, spec.n, shape[-1]), seed).reshape(shape)
+
+    a, b = planes(sa, 11), planes(sb, 12)
+    g = lm_cuda.launch_args(spec.n, a.shape, a.stride(), b.shape, b.stride())
+    assert not g.copy_a and not g.copy_b
+    got = lm_cuda.mont_mul(spec, a, b)
+    assert torch.equal(got, lm_cuda.mont_mul_plain(spec, a, b))
+    assert torch.equal(lm_cuda.mont_mul(spec, b, a), got)
+
+
+def test_broadcast_operands_are_not_copied():
+    """A broadcast operand costs the card the output's bytes and nothing more."""
+    _need_card()
+    spec = fs.BLS_FR
+    a = _planes(spec, (3, spec.n, 4096), 13)
+    for b in (a[0], a[0, :, :1]):  # stage twiddles (n, B), a constant column (n, 1)
+        lm_cuda.mont_mul(spec, a, b)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        out = lm_cuda.mont_mul(spec, a, b)
+        torch.cuda.synchronize()
+        assert torch.cuda.max_memory_allocated() - before == out.numel() * 4
+    rows = a.reshape(3, -1, spec.n)  # batch-major (3, rows, n)
+    for b in (rows[0], rows[0, 7]):  # a (rows, n) table, an (n,) constant
+        field_cuda.mont_mul_bm(spec, rows, b)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        out = field_cuda.mont_mul_bm(spec, rows, b)
+        torch.cuda.synchronize()
+        assert torch.cuda.max_memory_allocated() - before == out.numel() * 4
+
+
 def test_mont_mul_kernel_rejects_bad_planes():
     _need_card()
     spec = fs.BLS_FQ
@@ -97,6 +150,29 @@ def test_mont_mul_bm_kernel_matches_plain(spec):
     # a ragged row count (not a multiple of the block's rows)
     assert torch.equal(field_cuda.mont_mul_bm(spec, a[0, :131], b[0, :131]),
                        field_cuda.mont_mul_bm_plain(spec, a[0, :131], b[0, :131]))
+
+
+@pytest.mark.parametrize("spec", [fs.BLS_FR, fs.BLS_FQ, fs.BW6_FQ], ids=lambda s: s.name)
+def test_mont_mul_bm_kernel_broadcast_patterns(spec):
+    _need_card()
+    rows = 4 * 131  # a quarter of the rows (131) is not a multiple of a block's
+    a = _planes(spec, (1, spec.n, rows), 14)[0].T.contiguous()
+    b = _planes(spec, (1, spec.n, rows), 15)[0].T.contiguous()
+    stack = a[: 3 * rows // 4].reshape(3, rows // 4, spec.n)
+    table = b[: rows // 4]
+    for x, y in ((stack, b[9]), (stack, table), (a, b[3]), (b[3], a)):
+        g = field_cuda.launch_args(spec.n, x.shape, x.stride(), x.data_ptr() % 16 == 0,
+                                   y.shape, y.stride(), y.data_ptr() % 16 == 0)
+        assert not g.copy_a and not g.copy_b
+        assert torch.equal(field_cuda.mont_mul_bm(spec, x, y),
+                           field_cuda.mont_mul_bm_plain(spec, x, y))
+    # operands the kernel cannot read in place are copied first: limbs not
+    # contiguous, a row start off 16 bytes
+    t = _planes(spec, (1, spec.n, 64), 16)[0].T
+    off = a.reshape(-1)[1 : 1 + 64 * spec.n].reshape(64, spec.n)
+    for x in (t, off):
+        assert torch.equal(field_cuda.mont_mul_bm(spec, x, b[:64]),
+                           field_cuda.mont_mul_bm_plain(spec, x, b[:64]))
 
 
 def test_mont_mul_bm_kernel_rejects_bad_rows():

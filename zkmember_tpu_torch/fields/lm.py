@@ -75,9 +75,9 @@ def inv(spec: FieldSpec, a):
 
 
 def from_mont(spec: FieldSpec, a):
-    one = torch.zeros_like(a)
-    one[..., 0, :] = 1
-    return mont_mul(spec, a, one)
+    one = np.zeros(spec.n, np.int64)
+    one[0] = 1
+    return mont_mul(spec, a, lb.const_limbs(one, a.device))  # an (n, 1) column
 
 
 def to_mont(spec: FieldSpec, a):

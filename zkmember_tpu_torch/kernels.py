@@ -1,4 +1,4 @@
-"""Build, load and count the hand-written CUDA kernels.
+"""Build, load, launch and count the hand-written CUDA kernels.
 
 The sources under ``csrc/`` have a plain C interface.  ``nvcc`` compiles
 each ``.cu`` file to an object in parallel, links them into one shared
@@ -9,6 +9,13 @@ it.  No PyTorch headers, no ``torch.utils.cpp_extension``, no ninja.
 Nothing is built at import: the first CUDA launch (or ``chip_smoke.py``)
 calls :func:`library`.  Each wrapper adds one to ``LAUNCHES[name]`` where it
 launches its kernel, and nowhere else.
+
+Every wrapper launches through :func:`launch`, which switches the current
+device only when the operands lie on another, with its field's constants
+made once (:func:`field_consts`).  The field products (K2, K3) run on every
+product of a proof, so their host work per call matters: they also reach
+broadcast operands as element strides (:func:`expanded_strides`,
+:func:`fold`) instead of copies.
 """
 
 from __future__ import annotations
@@ -19,6 +26,8 @@ import shutil
 import subprocess
 import tempfile
 import threading
+
+import torch
 
 from zkmember_tpu_torch import _build
 
@@ -33,6 +42,7 @@ LAUNCHES = {"mont_mul": 0, "select_reduce_fp": 0, "select_reduce_fp2": 0, "mont_
 
 _lock = threading.Lock()
 _lib = None
+_FIELD_CONSTS: dict = {}
 BUILD_LOG = ""  # compiler output of the build this process ran (ptxas -v)
 
 
@@ -94,9 +104,10 @@ def library():
         lib = ctypes.CDLL(path)
         vp, ll, i32, u32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_uint32
         u32p = ctypes.POINTER(ctypes.c_uint32)
-        lib.zk_mont_mul.argtypes = [i32, vp, vp, vp, ll, ll, u32p, u32, vp]
+        lib.zk_mont_mul.argtypes = [i32, vp, vp, vp, ll, ll, ll, ll, ll, ll, ll, ll, u32p, u32,
+                                    vp]
         lib.zk_mont_mul.restype = i32
-        lib.zk_mont_mul_bm.argtypes = [i32, vp, vp, vp, ll, u32p, u32, vp]
+        lib.zk_mont_mul_bm.argtypes = [i32, vp, vp, vp, ll, ll, ll, ll, ll, ll, u32p, u32, vp]
         lib.zk_mont_mul_bm.restype = i32
         lib.zk_select_reduce.argtypes = [
             i32, i32, vp, vp, ctypes.POINTER(vp), i32, i32, ll, i32, u32p, u32, i32, i32, vp,
@@ -114,3 +125,72 @@ def library():
 def check(rc: int, name: str) -> None:
     if rc != 0:
         raise RuntimeError(f"CUDA kernel {name} failed to launch: error {rc}")
+
+
+def field_consts(spec):
+    """p's 32-bit words as a ctypes array and np0 = -p^-1 mod 2^32: a field's
+    launch constants, made once per field."""
+    c = _FIELD_CONSTS.get(spec.p)
+    if c is None:
+        words = [int(w) for w in spec.p_words]
+        c = _FIELD_CONSTS[spec.p] = ((ctypes.c_uint32 * len(words))(*words), spec.np32)
+    return c
+
+
+def launch(fn, device, *args) -> int:
+    """fn(*args, stream) with the current stream of CUDA `device`; the current
+    device is switched (and restored) only when it is another one."""
+    if device.index == torch.cuda.current_device():
+        return fn(*args, torch.cuda.current_stream(device).cuda_stream)
+    with torch.cuda.device(device):
+        return fn(*args, torch.cuda.current_stream(device).cuda_stream)
+
+
+# -- launch geometry: pure functions of shapes and strides (tested on the CPU) --
+
+
+def broadcast_shape(x: tuple, y: tuple) -> tuple:
+    """The broadcast of two shapes (numpy's rule); equal shapes return at once."""
+    if x == y:
+        return tuple(x)
+    nd = max(len(x), len(y))
+    x = (1,) * (nd - len(x)) + tuple(x)
+    y = (1,) * (nd - len(y)) + tuple(y)
+    out = []
+    for p, q in zip(x, y):
+        if p != q and p != 1 and q != 1:
+            raise ValueError(f"shapes {x} and {y} do not broadcast")
+        out.append(q if p == 1 else p)
+    return tuple(out)
+
+
+def expanded_strides(shape: tuple, x_shape: tuple, x_strides: tuple) -> tuple:
+    """Element strides of a view of shape `x_shape` expanded to `shape`: 0 on
+    every axis it is broadcast along (and on any axis of size 1)."""
+    pad = len(shape) - len(x_shape)
+    return (0,) * pad + tuple(0 if size == 1 else st for size, st in zip(x_shape, x_strides))
+
+
+def contiguous_strides(shape: tuple) -> tuple:
+    """Element strides of a contiguous (row-major) array of `shape`."""
+    out, step = [], 1
+    for size in reversed(shape):
+        out.append(step)
+        step *= size
+    return tuple(reversed(out))
+
+
+def fold(sizes: tuple, strides: tuple):
+    """The one element stride that walks the axes `sizes` (row-major, as if
+    flattened) of a view with `strides`, or None where no single stride does."""
+    step, span = 0, 0
+    for size, st in zip(reversed(sizes), reversed(strides)):
+        if size == 1:
+            continue
+        if span == 0:
+            step, span = st, size
+        elif st != step * span:
+            return None
+        else:
+            span *= size
+    return step

@@ -79,18 +79,13 @@ def msm_finish_cuda(ops, S):
     def ptrs(ts):
         return (ctypes.c_void_p * 6)(*([t.data_ptr() for t in ts] + [0] * (6 - len(ts))))
 
-    p_words = np.ascontiguousarray(spec.p_words)
+    p_words, np0 = kernels.field_consts(spec)
     one_words = np.array([(spec.R >> (32 * i)) & 0xFFFFFFFF for i in range(n // 2)],
                          dtype=np.uint32)  # R mod p: the Montgomery form of 1
-    u32p = ctypes.POINTER(ctypes.c_uint32)
-    lib = kernels.library()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.zk_msm_finish(
-            n, int(fp2), ptrs(planes), ptrs(scratch), ptrs(sums), ptrs(outs), W, R, NT, tail,
-            p_words.ctypes.data_as(u32p), spec.np32, one_words.ctypes.data_as(u32p),
-            int(b3[0]), int(b3[1]), stream,
-        )
+    rc = kernels.launch(
+        kernels.library().zk_msm_finish, dev, n, int(fp2), ptrs(planes), ptrs(scratch),
+        ptrs(sums), ptrs(outs), W, R, NT, tail, p_words, np0,
+        one_words.ctypes.data_as(ctypes.POINTER(ctypes.c_uint32)), int(b3[0]), int(b3[1]))
     name = "msm_finish_fp2" if fp2 else "msm_finish_fp"
     kernels.check(rc, name)
     kernels.LAUNCHES[name] += 2

@@ -25,7 +25,6 @@ from __future__ import annotations
 
 import ctypes
 
-import numpy as np
 import torch
 
 from zkmember_tpu_torch import kernels
@@ -131,15 +130,10 @@ def select_reduce_cuda(ops, records, digits):
         raise ValueError(f"digits must be (W, {R}, {B}), got {tuple(digits.shape)}")
     outs = [torch.empty((W, R, n, B // L), dtype=torch.int32, device=dev) for _ in range(C)]
     out_ptrs = (ctypes.c_void_p * 6)(*([o.data_ptr() for o in outs] + [0] * (6 - len(outs))))
-    p_words = np.ascontiguousarray(spec.p_words)
-    lib = kernels.library()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.zk_select_reduce(
-            n, int(fp2), records.data_ptr(), digits.data_ptr(), out_ptrs, W, R, B, L,
-            p_words.ctypes.data_as(ctypes.POINTER(ctypes.c_uint32)), spec.np32,
-            int(b3[0]), int(b3[1]), stream,
-        )
+    p_words, np0 = kernels.field_consts(spec)
+    rc = kernels.launch(kernels.library().zk_select_reduce, dev, n, int(fp2),
+                        records.data_ptr(), digits.data_ptr(), out_ptrs, W, R, B, L, p_words,
+                        np0, int(b3[0]), int(b3[1]))
     name = "select_reduce_fp2" if fp2 else "select_reduce_fp"
     kernels.check(rc, name)
     kernels.LAUNCHES[name] += 1
