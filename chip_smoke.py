@@ -2,7 +2,8 @@
 """Run the PyTorch/CUDA port on one NVIDIA GPU, end to end.
 
     python3 chip_smoke.py [--seed S]
-        [--phases device,build,k2,k1,prove,k3,setup,prove_v1,cli[,profile]]
+        [--phases device,build,k2,k1,prove,k3,setup,prove_v1,cli,prove_batch,harness,
+                  scale[,profile]]
 
 Phases (each raises on failure, so the script exits non-zero):
   device  the card's name and power limit (nvidia-smi)
@@ -26,7 +27,8 @@ Phases (each raises on failure, so the script exits non-zero):
           the same inputs (K2's shapes and launches must match the table
           phase k2 timed, and no K2 operand may be copied); then K1 and the
           finish are timed at the proof's shapes beside their plain
-          versions, and the outputs must agree
+          versions, and the outputs must agree (a proof is prove_batch of
+          one: K1's digits are (W, 1, R, B))
   k3      batch-major Montgomery-product kernel against its plain version,
           bit for bit, at n = 16, 24 and 48 (random rows, the rows 0, 1 and
           p - 1, a broadcast (n,) operand), then timed at the v1 path's
@@ -46,13 +48,32 @@ Phases (each raises on failure, so the script exits non-zero):
           members (15 through `interactive`, one through `register`),
           `root`, `prove` (inline verification true), `verify` (exit 0) and
           `verify` against another member's leaf (exit 1)
-  profile (optional, last) one more proof of each prover that ran (prove,
-          prove_v1) under torch.profiler: the kernels' device time, the
-          device's idle share, the top kernels
+  prove_batch  prove_lm.prove_batch from the committed key over distinct
+          members of the 16-member registrar: a batch of 4 must equal 4
+          sequential prove calls with the same rng state, every proof must
+          verify and fail for another member's leaf, and one more batch holds
+          every kernel call against its plain version (K1 with P = 4, the
+          finish over P x R rows, K2 at the batched shapes, no copy); batches
+          of 4 and 8 are timed (3 runs, launch counts reset before the first)
+          beside one proof of the same process, with phases; then K1 and the
+          finish are timed at both batches' shapes beside their plain versions
+  harness python -m zkmember_tpu_torch.app.bench_harness --sizes 16
+          --checkpoint-dir artifacts --reps 3, then the same with --batch 4, in
+          subprocesses: the rows parse, verify is true, artifacts/ is unchanged
+  scale   app.scale.run_depth(32): the depth-32 circuit (100,005 constraints,
+          M = 2^17) traced, set up on the card, warmed, proved twice and
+          verified, with the launches of each phase (counts reset at each
+          row); the proof fails for a wrong leaf; one more proof holds every
+          kernel call against its plain version; K1 and the finish timed at
+          its shapes
+  profile (optional, last) one more run of each prover path that ran
+          (prove, prove_batch at 8 proofs, scale, prove_v1) under
+          torch.profiler: the kernels' device time, the device's idle
+          share, the top kernels
 
 Progress goes to stderr.  stdout ends with a prove line, a setup/prove_v1
-line, the card line (nvidia-smi), one JSON "kernels" line and, last,
-{"ok": true, "device": ...}.
+line, a prove_batch/harness/scale line, the card line (nvidia-smi), one JSON
+"kernels" line and, last, {"ok": true, "device": ...}.
 Imports nothing of JAX.  Needs one CUDA card; without one it exits 2.
 """
 
@@ -80,7 +101,8 @@ HOLD_CYCLES = 5_000_000  # about 3 ms of spinning at the H100's clocks
 
 RESULTS: dict = {}
 STATE: dict = {}  # keys and circuits handed from one phase to the next
-CIRCUITS: dict = {}  # members -> (circuit, public inputs, rng state after the CRH params)
+CIRCUITS: dict = {}  # members -> the registrar (and the rng state after its CRH params);
+# ("circuit", members) -> bench.py's circuit and its public inputs
 # prove_lm's path
 PROVE_M = 1 << 14  # the domain of the 16-member circuit's committed key
 PROVE_KERNELS = ("mont_mul", "select_reduce_fp", "select_reduce_fp2", "msm_finish_fp",
@@ -216,20 +238,22 @@ def phase_k2(np_rng):
     RESULTS["mont_mul"] = RESULTS["mont_mul_shapes"][0]  # the shape of most launches
 
 
-def k2_proof_shapes(M: int) -> dict:
-    """K2's operand shapes in one prove_lm proof of domain size M over
-    BLS12-381 Fr, each with its launches: the H pipeline of ntt/lm.py (the
-    prove phase checks this table against the proof's own calls)."""
+def k2_proof_shapes(M: int, P: int = 1) -> dict:
+    """K2's operand shapes in one prove_lm batch of P proofs (a proof is a
+    batch of one) of domain size M over BLS12-381 Fr, each with its
+    launches: the H pipeline of ntt/lm.py (the prove and prove_batch phases
+    check this table against the proofs' own calls)."""
     from zkmember_tpu_torch.fields import spec as fs
 
     f, n, h, log_m = fs.BLS_FR.name, fs.BLS_FR.n, M // 2, M.bit_length() - 1
     return {
-        (f, (3, n, h), (n, h)): 2 * log_m,  # the stages of the stacked iNTT and coset NTT
-        (f, (n, h), (n, h)): log_m,  # the stages of the coset iNTT
-        (f, (3, n, M), (n, 1)): 1,  # 1 / N
-        (f, (3, n, M), (n, M)): 1,  # the coset scale g^i
-        (f, (n, M), (n, M)): 2,  # A B; the coset scale g^-i / N
-        (f, (n, M), (n, 1)): 2,  # 1 / Z_H; out of Montgomery form
+        (f, (P, 3, n, h), (n, h)): 2 * log_m,  # the stages of the stacked iNTT and coset NTT
+        (f, (P, n, h), (n, h)): log_m,  # the stages of the coset iNTT
+        (f, (P, 3, n, M), (n, 1)): 1,  # 1 / N
+        (f, (P, 3, n, M), (n, M)): 1,  # the coset scale g^i
+        (f, (P, n, M), (P, n, M)): 1,  # A B
+        (f, (P, n, M), (n, M)): 1,  # the coset scale g^-i / N
+        (f, (P, n, M), (n, 1)): 2,  # 1 / Z_H; out of Montgomery form
     }
 
 
@@ -285,6 +309,7 @@ def _hold(name, where, got, want):
                              f"max limb error {err}")
     ERRS[name] = max(ERRS.get(name, 0), err)
     CHECKS.setdefault(name, []).append(where)
+    return err
 
 
 def _cat_windows(parts):
@@ -295,12 +320,16 @@ def _cat_windows(parts):
     return torch.cat(parts, 0)
 
 
-def select_reduce_plain_sliced(ops, tab, digits, step: int = 8):
-    """The plain select+reduce over `step`-window slices, joined on the
-    window axis: the whole grid's int64 temporaries do not fit the card."""
+def select_reduce_plain_sliced(ops, tab, digits, lanes: int = 8 * 4 * (1 << 14)):
+    """The plain select+reduce over window slices of about `lanes` selected
+    lanes each (8 windows of the 16-member G1 MSM), joined on the window
+    axis: the whole grid's temporaries do not fit the card."""
+    import math
+
     from zkmember_tpu_torch.msm import select_reduce_cuda as k1
 
     W = digits.shape[0]
+    step = max(1, lanes // math.prod(digits.shape[1:]))
     return _cat_windows([k1.select_reduce_plain(ops, tab, digits[w : w + step])
                          for w in range(0, W, step)])
 
@@ -341,11 +370,10 @@ def phase_k1(np_rng, py_rng):
         log(f"K1 {name} R=1 B={B} W={W} and {fname} (NT={NT}): limb-exact, the same point")
 
 
-def _membership_circuit(members: int):
-    """The 16-member registrar circuit, built exactly as bench.py builds it
-    (once per run), and a fresh rng in the state bench.py's setup found."""
-    import random
-
+def _registrar(members: int):
+    """The mock registrar of `members`, built exactly as bench.py builds it
+    (once per run): its CRH parameters, leaf digests and tree, and the rng's
+    state after the parameters (what bench.py's setup found)."""
     if members not in CIRCUITS:
         from zkmember_tpu_torch.app import circuits as app
         from zkmember_tpu_torch.app.member import generate_members
@@ -355,31 +383,42 @@ def _membership_circuit(members: int):
         rng = frng.test_rng()
         cfg = app.get_config("pedersen381")
         leaf_params, node_params = cfg.setup_params(rng)
-        ms = generate_members(members)
-        digests = [m.hash(leaf_params) for m in ms]
+        digests = [m.hash(leaf_params) for m in generate_members(members)]
         tree = app.new_membership_tree(leaf_params, node_params, digests)
-        root = tree.root()
-        idx = random.Random(0).randrange(members)
-        circuit = app.MerkleTreeCircuit(
-            config=cfg, leaf_params=leaf_params, node_params=node_params,
-            root=root, leaf_hash=digests[idx], authentication_path=tree.generate_proof(idx),
-        )
-        cs = circuit.generate_constraints()
-        CIRCUITS[members] = (cs, [root, digests[idx]], rng.getstate())
+        CIRCUITS[members] = (cfg, leaf_params, node_params, digests, tree, rng.getstate())
         STATE["leaf_params"] = leaf_params
-        log(f"{members}-member circuit built in {time.time() - t:.1f}s")
-    cs, public, state = CIRCUITS[members]
-    rng = random.Random()
-    rng.setstate(state)
-    return cs, public, rng
+        log(f"{members}-member registrar built in {time.time() - t:.1f}s")
+    return CIRCUITS[members]
+
+
+def _member_circuit(members: int, idx: int):
+    """Member idx's membership circuit and its public inputs (root, leaf)."""
+    from zkmember_tpu_torch.app import circuits as app
+
+    cfg, leaf_params, node_params, digests, tree, _ = _registrar(members)
+    circuit = app.MerkleTreeCircuit(
+        config=cfg, leaf_params=leaf_params, node_params=node_params,
+        root=tree.root(), leaf_hash=digests[idx], authentication_path=tree.generate_proof(idx),
+    )
+    return circuit.generate_constraints(), [tree.root(), digests[idx]]
+
+
+def _membership_circuit(members: int):
+    """bench.py's circuit, the proof of a random member of the registrar (built
+    once per run), and a fresh rng in the state bench.py's setup found."""
+    import random
+
+    key = ("circuit", members)
+    if key not in CIRCUITS:
+        CIRCUITS[key] = _member_circuit(members, random.Random(0).randrange(members))
+    cs, public = CIRCUITS[key]
+    return cs, public, _rng_at(_registrar(members)[-1])
 
 
 def phase_prove(np_rng):
     import torch
 
     from zkmember_tpu_torch import kernels
-    from zkmember_tpu_torch.fields import spec as fs
-    from zkmember_tpu_torch.msm import finish_cuda as fin, select_reduce_cuda as k1
     from zkmember_tpu_torch.snark import groth16, prove_lm
     from zkmember_tpu_torch.utils import checkpoint
 
@@ -431,70 +470,89 @@ def phase_prove(np_rng):
     if groth16.verify(vk, [public[0], (public[1] + 1) % keys.cfg.r], proof):
         raise AssertionError("the proof verifies for a wrong public input")
     log("proof verifies; negated C and a wrong public input are rejected")
-    k2_shapes = checked_proof(keys, cs, rng)
+    _, k2_shapes = checked_run(lambda: prove_lm.prove(keys, cs, rng=rng), "proof")
+    if sum(k2_shapes.values()) != launches["mont_mul"]:
+        raise AssertionError(f"the checked proof's K2 calls {k2_shapes} differ from the timed proof's")
     if k2_shapes != k2_proof_shapes(keys.M):
         raise AssertionError(f"the proof's K2 shapes {k2_shapes} differ from the table "
                              f"{k2_proof_shapes(keys.M)} that phase k2 times")
-
     # K1 and finish times at the proof's shapes, each beside its plain version
     # (phase k2 times K2 at the proof's shapes)
+    RESULTS.update(time_msm_kernels(np_rng, keys, 1, "timed"))
+
+
+def time_msm_kernels(np_rng, keys, P: int, where: str) -> dict:
+    """K1 (both variants) on random digits of the shape a batch of P proofs
+    over `keys` gives it, (W, P, R, B), and the finish on its output viewed
+    as (W, P R, n, NT), as prove_lm's batched MSM does: each held against
+    its plain version on the same inputs, then timed beside it."""
+    import torch
+
+    from zkmember_tpu_torch.fields import spec as fs
+    from zkmember_tpu_torch.msm import finish_cuda as fin, select_reduce_cuda as k1, straus
+
     spec = fs.BLS_FQ
     imads_per_mul = _imads(spec)
-    W = keys.nwin
+    W, n = keys.nwin, spec.n
+    out = {}
     for g2, tab, R, B in ((False, keys.g1_tab, 4, keys.B1), (True, keys.g2_tab, 1, keys.B2)):
         ops = keys.ops2 if g2 else keys.ops1
-        dig = torch.as_tensor(np_rng.integers(0, 16, size=(W, R, B)), dtype=torch.int32,
+        dig = torch.as_tensor(np_rng.integers(0, 16, size=(W, P, R, B)), dtype=torch.int32,
                               device="cuda")
         name = "select_reduce_fp2" if g2 else "select_reduce_fp"
         S = k1.select_reduce_cuda(ops, tab, dig)
-        _hold(name, f"timed W={W} R={R} B={B}", S, select_reduce_plain_sliced(ops, tab, dig))
-        kms = cuda_ms(lambda: k1.select_reduce_cuda(ops, tab, dig))
-        pms = cuda_ms(lambda: select_reduce_plain_sliced(ops, tab, dig), reps=1, rounds=1,
-                      warmup=False)
+        err = _hold(name, f"{where} W={W} P={P} R={R} B={B}", S,
+                    select_reduce_plain_sliced(ops, tab, dig))
         _, L = k1.tile_shape(B)
         NT = B // L
         nc = 2 if g2 else 1
         prods = 12 * (3 if g2 else 1)  # base products of one complete addition
-        point_bytes = 3 * nc * spec.n * 4
-        RESULTS[name] = {
-            "shape": [W, R, B], "ms": kms, "plain_ms": pms,
-            "bound": _bound(16 * R * B * point_bytes + W * R * B * 4 + W * R * NT * point_bytes,
-                            W * R * (B - NT) * prods * imads_per_mul),
+        point_bytes = 3 * nc * n * 4
+        rows = P * R
+        out[name] = {
+            "shape": [W, P, R, B], "proofs": P, "max_abs_err": err,
+            "ms": cuda_ms(lambda: k1.select_reduce_cuda(ops, tab, dig)),
+            "plain_ms": cuda_ms(lambda: select_reduce_plain_sliced(ops, tab, dig), reps=1,
+                                rounds=1, warmup=False),
+            "bound": _bound(16 * R * B * point_bytes + W * rows * B * 4
+                            + W * rows * NT * point_bytes,
+                            W * rows * (B - NT) * prods * imads_per_mul),
         }
-        # the finish on this K1 output: NT lanes a window, then the join
+        # the finish on this K1 output, its P R rows as one axis: NT lanes a
+        # window, then the join
         fname = "msm_finish_fp2" if g2 else "msm_finish_fp"
-        _hold(fname, f"timed W={W} R={R} NT={NT}", fin.msm_finish_cuda(ops, S),
-              fin.msm_finish_plain(ops, S))
+        Sv = tuple(straus._map_coord(lambda c: c.reshape(W, rows, n, NT), x) for x in S)
+        err = _hold(fname, f"{where} W={W} rows={rows} NT={NT}", fin.msm_finish_cuda(ops, Sv),
+                    fin.msm_finish_plain(ops, Sv))
         chain = 5 * W  # dependent additions of one row's join
-        RESULTS[fname] = {
-            "shape": [W, R, NT],
-            "ms": cuda_ms(lambda: fin.msm_finish_cuda(ops, S)),
-            "plain_ms": cuda_ms(lambda: fin.msm_finish_plain(ops, S), reps=1, rounds=1,
+        out[fname] = {
+            "shape": [W, rows, NT], "proofs": P, "max_abs_err": err,
+            "ms": cuda_ms(lambda: fin.msm_finish_cuda(ops, Sv)),
+            "plain_ms": cuda_ms(lambda: fin.msm_finish_plain(ops, Sv), reps=1, rounds=1,
                                 warmup=False),
-            "bound": _bound(W * R * NT * point_bytes + R * point_bytes,
-                            (W * R * (NT - 1) + chain * R) * prods * imads_per_mul),
+            "bound": _bound(W * rows * NT * point_bytes + rows * point_bytes,
+                            (W * rows * (NT - 1) + chain * rows) * prods * imads_per_mul),
         }
-        log(f"{fname}: the join is a chain of {chain} dependent additions of "
-            f"{prods * imads_per_mul} IMADs per row")
-    for k in ("select_reduce_fp", "select_reduce_fp2", "msm_finish_fp", "msm_finish_fp2"):
-        r = RESULTS[k]
-        log(f"{k} at {r['shape']}: kernel {r['ms']:.3f} ms, plain {r['plain_ms']:.1f} ms, "
-            f"bound {r['bound'][0]:.4f} ms ({r['bound'][1]})")
+    for k, r in out.items():
+        log(f"{k} at {r['shape']} ({where}): kernel {r['ms']:.3f} ms, plain "
+            f"{r['plain_ms']:.1f} ms, bound {r['bound'][0]:.4f} ms ({r['bound'][1]})")
+    return out
 
 
-def checked_proof(keys, cs, rng):
-    """One proof in which the first call of each kernel at every distinct
-    shape (operand shapes and field) is held against its plain version on
-    the same inputs, limb for limb: the NTT shapes of K2, both K1 grids and
-    both finishes.  Its launches are outside the counted proof."""
+def checked_run(run, what: str):
+    """run() (proofs of prove_lm) with the first call of each kernel at every
+    distinct shape (operand shapes and field) held against its plain version
+    on the same inputs, limb for limb: the NTT shapes of K2, both K1 grids
+    and both finishes; no K2 operand may be copied.  Its launches are outside
+    any counted run.  Returns run()'s result and the K2 launches of the run
+    itself by (field, shape of a, shape of b)."""
     from zkmember_tpu_torch.fields import lm_cuda
     from zkmember_tpu_torch.msm import finish_cuda as fin, select_reduce_cuda as k1
-    from zkmember_tpu_torch.snark import prove_lm
 
     mont_mul_cuda, select_reduce_cuda = lm_cuda.mont_mul_cuda, k1.select_reduce_cuda
     msm_finish_cuda = fin.msm_finish_cuda
     seen = set()
-    counts: dict = {}  # (field, shape of a, shape of b) -> K2 launches of the proof itself
+    counts: dict = {}  # (field, shape of a, shape of b) -> K2 launches of the run itself
     in_plain = [0]  # the plain K1 and finish run their products on K2 too: not counted
 
     def mont_mul_checked(spec, a, b):
@@ -505,7 +563,7 @@ def checked_proof(keys, cs, rng):
             g = lm_cuda.launch_args(spec.n, a.shape, a.stride(), b.shape, b.stride())
             if g.copy_a or g.copy_b:
                 raise AssertionError(f"K2 copies an operand at {key}")
-            _hold("mont_mul", f"proof {spec.name} {key[1]} x {key[2]}", out,
+            _hold("mont_mul", f"{what} {spec.name} {key[1]} x {key[2]}", out,
                   lm_cuda.mont_mul_plain(spec, a, b))
         if not in_plain[0]:
             counts[key] = counts.get(key, 0) + 1
@@ -520,9 +578,8 @@ def checked_proof(keys, cs, rng):
 
     def select_reduce_checked(ops, tab, digits):
         out = select_reduce_cuda(ops, tab, digits)
-        W, R, B = digits.shape
         name = "select_reduce_fp2" if isinstance(ops.b3, tuple) else "select_reduce_fp"
-        _hold(name, f"proof W={W} R={R} B={B}", out,
+        _hold(name, f"{what} digits {tuple(digits.shape)}", out,
               plain(select_reduce_plain_sliced, ops, tab, digits))
         return out
 
@@ -530,22 +587,20 @@ def checked_proof(keys, cs, rng):
         out = msm_finish_cuda(ops, S)
         c = S[0][0] if isinstance(S[0], tuple) else S[0]
         name = "msm_finish_fp2" if isinstance(ops.b3, tuple) else "msm_finish_fp"
-        _hold(name, f"proof {tuple(c.shape)}", out, plain(fin.msm_finish_plain, ops, S))
+        _hold(name, f"{what} {tuple(c.shape)}", out, plain(fin.msm_finish_plain, ops, S))
         return out
 
     lm_cuda.mont_mul_cuda, k1.select_reduce_cuda = mont_mul_checked, select_reduce_checked
     fin.msm_finish_cuda = msm_finish_checked
     try:
         t = time.time()
-        prove_lm.prove(keys, cs, rng=rng)  # ends on the host
+        result = run()  # ends on the host
     finally:
         lm_cuda.mont_mul_cuda, k1.select_reduce_cuda = mont_mul_cuda, select_reduce_cuda
         fin.msm_finish_cuda = msm_finish_cuda
-    log(f"checked proof in {time.time() - t:.1f}s: K2 bit-exact at {len(seen)} distinct "
-        f"operand shapes, K1 and the finish limb-exact at both of the proof's MSMs")
-    if sum(counts.values()) != RESULTS["launches"]["mont_mul"]:
-        raise AssertionError(f"the checked proof's K2 calls {counts} differ from the timed proof's")
-    return counts
+    log(f"checked {what} in {time.time() - t:.1f}s: K2 bit-exact at {len(seen)} distinct "
+        f"operand shapes, K1 and the finish limb-exact at both MSMs")
+    return result, counts
 
 
 def _plane(np_rng, spec, shape):
@@ -609,6 +664,13 @@ def raw_launch(fn, prepare, spec, a, b):
     return (lambda: fn(*args, stream)), (out, operands)
 
 
+def _shape_row(r: dict, launches: int) -> dict:
+    """A kernel's entry of the kernels line at one more shape of a path."""
+    return {"shape": r["shape"], "launches": launches, "max_abs_err": r["max_abs_err"],
+            "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
+            "bound_by": r["bound"][1], "library_ms": None}
+
+
 def _bound(nbytes: float, imads: float):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = imads / IMAD_PER_S * 1e3
@@ -616,16 +678,27 @@ def _bound(nbytes: float, imads: float):
 
 
 def phase_profile():
-    """One more proof of each prover that ran (prove_lm after `prove`, the v1
-    prover after `prove_v1`) under torch.profiler: the kernels' device time,
-    the device's idle share against that prover's timed proof, and the
-    kernels with the most device time.  Not part of the default run:
-    reading a trace of ~200k launches takes minutes."""
+    """One more run of each prover path that ran (prove_lm after `prove`, a
+    batch of BATCH_TIMED after `prove_batch`, the depth-32 proof after
+    `scale`, the v1 prover after `prove_v1`) under torch.profiler: the
+    kernels' device time, the device's idle share against that path's timed
+    run, and the kernels with the most device time.  Not part of the
+    default run: reading a trace of ~200k launches takes minutes."""
     from zkmember_tpu_torch.snark import groth16, prove_lm
 
     if "keys" in STATE:
         _profile("profile", RESULTS["prove_s"],
                  lambda: prove_lm.prove(STATE["keys"], STATE["cs"], rng=STATE["rng"]))
+    if "batch" in STATE:
+        keys, batch = STATE["batch"]
+        _profile("profile_batch",
+                 statistics.median(RESULTS["prove_batch"][f"P{len(batch)}"]["prove_batch_s"]),
+                 lambda: prove_lm.prove_batch(keys, batch))
+    if "scale" in STATE:
+        keys, cs = STATE["scale"]
+        prove_s = next(r["seconds"] for r in RESULTS["scale"]["rows"]
+                       if r["name"].endswith("depth32_prove"))
+        _profile("profile_scale", prove_s, lambda: prove_lm.prove(keys, cs))
     if "pk_v1" in STATE:
         cs, _, rng = _membership_circuit(16)
         _profile("profile_v1", RESULTS["prove_v1_s"],
@@ -979,7 +1052,215 @@ def phase_cli():
         f"and rejects another member's leaf ({RESULTS['cli_s']:.1f}s)")
 
 
-PHASES = ("device", "build", "k2", "k1", "prove", "k3", "setup", "prove_v1", "cli")
+# ---------------------------------------------------------------------------
+# batched proving and the app harnesses
+# ---------------------------------------------------------------------------
+
+BATCH_CHECKED, BATCH_TIMED = 4, 8  # proofs in the checked and the timed batch
+
+
+def _same_proof(a, b) -> bool:
+    return (a.a, a.b, a.c) == (b.a, b.b, b.c)
+
+
+def phase_prove_batch(np_rng):
+    """prove_lm.prove_batch over the committed 16-member key: distinct
+    members of one registrar; a batch of BATCH_CHECKED is checked (every
+    proof verifies, equals the proof of sequential prove calls with the same
+    rng state, fails for another member's leaf; every kernel call of one
+    more batch held against its plain version), a batch of BATCH_TIMED is
+    timed beside a single proof of this process; then K1 and the finish
+    are timed at both batches' shapes."""
+    import random
+
+    import torch
+
+    from zkmember_tpu_torch import kernels
+    from zkmember_tpu_torch.snark import groth16, prove_lm
+    from zkmember_tpu_torch.utils import checkpoint
+
+    keys = STATE.get("keys") or checkpoint.load_groth16_keys(
+        os.path.join(REPO, "artifacts", "groth16_bls12_381_16"), device="cuda")
+    prove_lm.warm(keys)
+    idxs = random.Random(1).sample(range(16), BATCH_TIMED)
+    t = time.time()
+    circuits = [_member_circuit(16, i) for i in idxs]
+    log(f"{len(idxs)} member circuits (members {idxs}) in {time.time() - t:.1f}s")
+    cs_all = [cs for cs, _ in circuits]
+    vk = keys.pk.vk
+    state = _registrar(16)[-1]
+
+    # checked batch: equal to sequential proofs, each verifies, bound to its leaf
+    P = BATCH_CHECKED
+    t = time.time()
+    proofs = prove_lm.prove_batch(keys, cs_all[:P], rng=_rng_at(state))
+    log(f"batch of {P} (first) in {time.time() - t:.2f}s")
+    seq_rng = _rng_at(state)
+    seq = [prove_lm.prove(keys, cs, rng=seq_rng) for cs in cs_all[:P]]
+    for i, (proof, single, (_, public)) in enumerate(zip(proofs, seq, circuits)):
+        if not _same_proof(proof, single):
+            raise AssertionError(f"batched proof {i} differs from the sequential proof")
+        if not groth16.verify(vk, public, proof):
+            raise AssertionError(f"batched proof {i} does not verify")
+        other = circuits[(i + 1) % P][1]
+        if groth16.verify(vk, [public[0], other[1]], proof):
+            raise AssertionError(f"batched proof {i} verifies for another member's leaf")
+    log(f"batch of {P}: every proof verifies, equals {P} sequential prove calls with the same "
+        "rng state, and is rejected for another member's leaf")
+    checked, k2_shapes = checked_run(
+        lambda: prove_lm.prove_batch(keys, cs_all[:P], rng=_rng_at(state)), f"batch of {P}")
+    if not all(_same_proof(a, b) for a, b in zip(checked, proofs)):
+        raise AssertionError("the checked batch differs from the first one")
+    if k2_shapes != k2_proof_shapes(keys.M, P):
+        raise AssertionError(f"the batch's K2 shapes {k2_shapes} differ from "
+                             f"{k2_proof_shapes(keys.M, P)}")
+
+    # timed: one proof, then batches of BATCH_CHECKED and BATCH_TIMED
+    rng = _rng_at(state)
+    t = time.time()
+    prove_lm.prove(keys, cs_all[0], rng=rng)
+    single_s = time.time() - t
+    out = {"prove_s": single_s, "members": idxs}
+    for P in (BATCH_CHECKED, BATCH_TIMED):
+        batch = cs_all[:P]
+        prove_lm.prove_batch(keys, batch, rng=rng)  # warm-up at this shape
+        kernels.reset_launches()
+        torch.cuda.synchronize()
+        t = time.time()
+        proofs = prove_lm.prove_batch(keys, batch, rng=rng)
+        batch_s = time.time() - t
+        launches = dict(kernels.LAUNCHES)
+        expect = {"mont_mul": 3 * (keys.M.bit_length() - 1) + 6, "select_reduce_fp": 1,
+                  "select_reduce_fp2": 1, "msm_finish_fp": 2, "msm_finish_fp2": 2,
+                  "mont_mul_bm": 0}
+        if launches != expect:
+            raise AssertionError(f"the batch of {P} launched {launches}, not {expect}")
+        if not all(groth16.verify(vk, circuits[i][1], p) for i, p in enumerate(proofs)):
+            raise AssertionError(f"a proof of the timed batch of {P} does not verify")
+        reps = [batch_s]
+        for _ in range(2):
+            t = time.time()
+            prove_lm.prove_batch(keys, batch, rng=rng)
+            reps.append(time.time() - t)
+        phases: dict = {}
+        t = time.time()
+        prove_lm.prove_batch(keys, batch, rng=rng, phase_times=phases)
+        out[f"P{P}"] = {
+            "prove_batch_s": reps, "proofs_per_s": P / statistics.median(reps),
+            "launches": launches, "phases_s": {"total_s": time.time() - t, **phases},
+        }
+        log(f"batch of {P}: {', '.join(f'{x:.3f}' for x in reps)} s "
+            f"({P / statistics.median(reps):.2f} proofs/s; one proof {single_s:.3f} s, "
+            f"{1 / single_s:.2f} proofs/s); launches {launches}; phases " + ", ".join(
+                f"{k} {v:.3f}s" for k, v in out[f'P{P}']['phases_s'].items()))
+    out["launches"] = out[f"P{BATCH_TIMED}"]["launches"]
+    RESULTS["prove_batch"] = out
+    STATE["batch"] = (keys, cs_all[:BATCH_TIMED])
+    RESULTS["batched"] = {}
+    for P in (BATCH_CHECKED, BATCH_TIMED):
+        for k, r in time_msm_kernels(np_rng, keys, P, f"batch of {P}").items():
+            RESULTS["batched"].setdefault(k, []).append(r)
+
+
+def _run_module(module: str, args, want_rc: int = 0):
+    """python -m <module> <args> from the root of the checkout; its stdout."""
+    t = time.time()
+    res = subprocess.run([sys.executable, "-m", module, *args], capture_output=True, text=True,
+                         env=dict(os.environ, PYTHONPATH=REPO), cwd=REPO, timeout=900)
+    log(f"{module} {' '.join(args)}: exit {res.returncode} in {time.time() - t:.1f}s")
+    if res.returncode != want_rc:
+        raise AssertionError(f"{module} {args} exited {res.returncode}, expected {want_rc}:\n"
+                             f"{res.stdout[-2000:]}\n{res.stderr[-4000:]}")
+    return res.stdout
+
+
+def phase_harness():
+    """The bench harness in subprocesses: the Groth16 grid at 16 members with
+    the committed key (loaded, not written), then --batch 4."""
+    art = os.path.join(REPO, "artifacts")
+
+    def listing():
+        return sorted((f, os.stat(os.path.join(art, f)).st_mtime_ns) for f in os.listdir(art))
+
+    before = listing()
+    base = ["--sizes", "16", "--checkpoint-dir", "artifacts", "--reps", "3"]
+    out = {}
+    for label, args in (("grid", base), ("batch", base + ["--batch", "4"])):
+        t = time.time()
+        rows = [json.loads(line) for line in
+                _run_module("zkmember_tpu_torch.app.bench_harness", args).splitlines()
+                if line.startswith("{")]
+        out[label] = {"rows": rows, "wall_s": time.time() - t}
+    names = [r["name"] for r in out["grid"]["rows"]]
+    want = (["bls12_381_groth16_setup_load_16"] + ["bls12_381_groth16_prove_16"] * 4
+            + ["bls12_381_groth16_verify_16"])
+    if names != want:
+        raise AssertionError(f"the grid's rows {names} are not {want}")
+    if out["grid"]["rows"][-1].get("verified") is not True:
+        raise AssertionError("the grid's proof does not verify")
+    batch = out["batch"]["rows"]
+    if ([r["name"] for r in batch] != ["bls12_381_groth16_batch_prove_16"]
+            or batch[0].get("verified") is not True or batch[0].get("batch") != 4
+            or not batch[0].get("proofs_per_sec", 0) > 0):
+        raise AssertionError(f"the --batch 4 row is not a verified batch of 4: {batch}")
+    if listing() != before:
+        raise AssertionError("the harness wrote into artifacts/ although the key exists")
+    RESULTS["harness"] = out
+    log(f"harness: grid rows {names} verified; --batch 4 at {batch[0]['proofs_per_sec']} "
+        "proofs/s, verified; artifacts/ unchanged")
+
+
+def phase_scale(np_rng):
+    """app.scale.run_depth(32): the depth-32 circuit (about 100k constraints,
+    M = 2^17) through trace, setup on the card, warm, a first and a timed
+    proof and verify; the launches of each phase; the proof rejected for a
+    wrong leaf; one more proof with every kernel call held against its plain
+    version; K1 and the finish timed at its shapes."""
+    from zkmember_tpu_torch import kernels
+    from zkmember_tpu_torch.app import scale
+    from zkmember_tpu_torch.snark import groth16, prove_lm
+
+    rows = []
+
+    def out(line):  # each row ends a phase: its launches, then the counts start again
+        row = json.loads(line)
+        row["launches"] = {k: v for k, v in kernels.LAUNCHES.items() if v}
+        kernels.reset_launches()
+        rows.append(row)
+        log(f"scale {row['name']}: {row['seconds']} s; launches {row['launches']}"
+            + "".join(f"; {k} {row[k]}" for k in ("constraints", "variables", "domain",
+                                                     "verified") if k in row))
+
+    kernels.reset_launches()
+    keys, cs, public, proof = scale.run_depth(32, out=out, device="cuda")
+    by = {r["name"].removeprefix("bls12_381_groth16_depth32_"): r for r in rows}
+    if by["setup"]["launches"].get("mont_mul_bm", 0) == 0:
+        raise AssertionError("the depth-32 setup launched no mont_mul_bm")
+    expect = {"mont_mul": 3 * (keys.M.bit_length() - 1) + 6, "select_reduce_fp": 1,
+              "select_reduce_fp2": 1, "msm_finish_fp": 2, "msm_finish_fp2": 2}
+    if by["prove"]["launches"] != expect:
+        raise AssertionError(f"the depth-32 proof launched {by['prove']['launches']}, not {expect}")
+    if keys.M != 1 << 17 or by["verify"].get("verified") is not True:
+        raise AssertionError(f"the depth-32 proof at M = {keys.M} did not verify")
+    if groth16.verify(keys.pk.vk, [public[0], (public[1] + 1) % keys.cfg.r], proof):
+        raise AssertionError("the depth-32 proof verifies for a wrong leaf")
+    checked, k2_shapes = checked_run(lambda: prove_lm.prove(keys, cs), "depth-32 proof")
+    if not groth16.verify(keys.pk.vk, public, checked):
+        raise AssertionError("the checked depth-32 proof does not verify")
+    if k2_shapes != k2_proof_shapes(keys.M):
+        raise AssertionError(f"the depth-32 K2 shapes {k2_shapes} differ from "
+                             f"{k2_proof_shapes(keys.M)}")
+    RESULTS["scale"] = {"rows": rows, "M": keys.M, "constraints": cs.num_constraints,
+                        "launches": by["prove"]["launches"],
+                        "setup_launches": by["setup"]["launches"]}
+    RESULTS["scale_kernels"] = time_msm_kernels(np_rng, keys, 1, "depth 32")
+    STATE["scale"] = (keys, cs)
+    log("scale: the depth-32 proof verifies, a wrong leaf is rejected, every kernel call "
+        "of a checked proof equals its plain version")
+
+
+PHASES = ("device", "build", "k2", "k1", "prove", "k3", "setup", "prove_v1", "cli",
+          "prove_batch", "harness", "scale")
 
 
 def main() -> int:
@@ -1021,6 +1302,12 @@ def main() -> int:
             phase_prove_v1()
         elif name == "cli":
             phase_cli()
+        elif name == "prove_batch":
+            phase_prove_batch(np_rng)
+        elif name == "harness":
+            phase_harness()
+        elif name == "scale":
+            phase_scale(np_rng)
         elif name == "profile":
             phase_profile()
         else:
@@ -1044,6 +1331,12 @@ def main() -> int:
                                      "prove_v1": RESULTS["launches_v1"]["mont_mul_bm"]},
             "mont_mul_bm_shapes": RESULTS["mont_mul_bm_shapes"],
             "mont_mul_shapes": RESULTS["mont_mul_shapes"],
+            "device": RESULTS["device"], "nvidia_smi": RESULTS["smi"],
+        }))
+        print(json.dumps({
+            "metric": "groth16_bls12_381_prove_batch_harness_depth32",
+            "prove_batch": RESULTS["prove_batch"], "harness": RESULTS["harness"],
+            "scale": RESULTS["scale"],
             "device": RESULTS["device"], "nvidia_smi": RESULTS["smi"],
         }))
         print(RESULTS["smi"])
@@ -1080,6 +1373,19 @@ def main() -> int:
             for k in ("operand_b", "device_ms", "host_us"):  # the field products
                 if k in r:
                     row[k] = r[k]
+            # the batched prover's and the depth-32 proof's shapes: launches of
+            # their timed runs (K3: the depth-32 setup)
+            batch = RESULTS["prove_batch"]
+            if name in RESULTS["batched"]:
+                row["batched"] = [_shape_row(b, batch[f"P{b['proofs']}"]["launches"][name])
+                                  for b in RESULTS["batched"][name]]
+                row["scale"] = _shape_row(RESULTS["scale_kernels"][name],
+                                          RESULTS["scale"]["launches"][name])
+            elif name == "mont_mul":
+                row["batched_launches"] = batch[f"P{BATCH_TIMED}"]["launches"][name]
+                row["scale_launches"] = RESULTS["scale"]["launches"][name]
+            else:
+                row["scale_launches"] = RESULTS["scale"]["setup_launches"][name]
             rows.append(row)
         print(json.dumps({"kernels": rows}))
         print(json.dumps({"ok": True, "device": {

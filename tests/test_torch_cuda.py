@@ -185,13 +185,9 @@ def test_mont_mul_bm_kernel_rejects_bad_rows():
         field_cuda.mont_mul_bm_cuda(fs.BLS_FR, a, a)
 
 
-# (W, B): one tile; a window count that is not a multiple of the warps of a
-# block (4 for Fp, 2 for Fp2); two tiles
-@pytest.mark.parametrize("W,B", [(4, 256), (3, 512), (3, 1024)])
-@pytest.mark.parametrize("rows", [1, 3])
-@pytest.mark.parametrize("g2", [False, True], ids=["g1", "g2"])
-def test_select_reduce_kernel_matches_plain(g2, rows, W, B):
-    _need_card()
+def _k1_table(g2, rows, B):
+    """K1's packed table of `rows` rows of B points on the card; row r holds
+    the points rolled by 7 r lanes, so a wrong row offset shows."""
     rng = random.Random(5)
     curve, gen = (bls.G2, bls.G2_GEN) if g2 else (bls.G1, bls.G1_GEN)
     P = curve.mul(rng.randrange(1, bls.R), gen)
@@ -211,23 +207,75 @@ def test_select_reduce_kernel_matches_plain(g2, rows, W, B):
     else:
         X, Y = dev([p[0].v for p in pts]), dev([p[1].v for p in pts])
     ops = prove_lm.sw_ops(groth16.pairing_config("bls12_381"), g2, "cuda")
-    # row r holds the points rolled by 7 r lanes, so a wrong row offset shows
     roll = lambda c, r: torch.roll(c, 7 * r, dims=-1)  # noqa: E731
     tabs = [straus.table_program(ops, straus._map_coord(lambda c: roll(c, r), X),
                                  straus._map_coord(lambda c: roll(c, r), Y))
             for r in range(rows)]
-    tab = torch.cat(tabs, 1).contiguous()  # R records (16, 1, B, .) -> (16, R, B, .)
+    return ops, torch.cat(tabs, 1).contiguous()  # R records (16, 1, B, .) -> (16, R, B, .)
+
+
+def _flat(S):
+    return [c for x in S for c in (x if isinstance(x, tuple) else (x,))]
+
+
+# (W, B): one tile; a window count that is not a multiple of the warps of a
+# block (4 for Fp, 2 for Fp2); two tiles
+@pytest.mark.parametrize("W,B", [(4, 256), (3, 512), (3, 1024)])
+@pytest.mark.parametrize("rows", [1, 3])
+@pytest.mark.parametrize("g2", [False, True], ids=["g1", "g2"])
+def test_select_reduce_kernel_matches_plain(g2, rows, W, B):
+    _need_card()
+    ops, tab = _k1_table(g2, rows, B)
     digits = torch.randint(0, 16, (W, rows, B), dtype=torch.int32, device="cuda")
     name = "select_reduce_fp2" if g2 else "select_reduce_fp"
     before = kernels.LAUNCHES[name]
     got = k1.select_reduce(ops, tab, digits)
     assert kernels.LAUNCHES[name] == before + 1
     want = k1.select_reduce_plain(ops, tab, digits)
-    flat = lambda S: [c for x in S for c in (x if isinstance(x, tuple) else (x,))]  # noqa: E731
-    for g, w in zip(flat(got), flat(want)):
+    for g, w in zip(_flat(got), _flat(want)):
         assert torch.equal(g, w)
     with pytest.raises(ValueError):
         k1.select_reduce_cuda(ops, tab, digits[..., :32].contiguous())
+
+
+@pytest.mark.parametrize("P", [1, 3])
+@pytest.mark.parametrize("g2", [False, True], ids=["g1", "g2"])
+def test_select_reduce_kernel_proof_axis(g2, P):
+    """Digits (W, P, R, B), the proof-batch axis: one launch equals the
+    plain version limb for limb, and proof p's sums equal a launch on its
+    (W, R, B) digits alone."""
+    _need_card()
+    W, rows, B = 3, 2, 1024
+    ops, tab = _k1_table(g2, rows, B)
+    digits = torch.randint(0, 16, (W, P, rows, B), dtype=torch.int32, device="cuda")
+    name = "select_reduce_fp2" if g2 else "select_reduce_fp"
+    before = kernels.LAUNCHES[name]
+    got = k1.select_reduce(ops, tab, digits)
+    assert kernels.LAUNCHES[name] == before + 1
+    want = k1.select_reduce_plain(ops, tab, digits)
+    for g, w in zip(_flat(got), _flat(want)):
+        assert g.shape == (W, P, rows, 24, B // 16)
+        assert torch.equal(g, w)
+    for p in range(P):
+        one = k1.select_reduce_cuda(ops, tab, digits[:, p].contiguous())
+        assert all(torch.equal(g[:, p], o) for g, o in zip(_flat(got), _flat(one)))
+
+
+@pytest.mark.parametrize("g2", [False, True], ids=["g1", "g2"])
+def test_select_reduce_kernel_rejects_batched_digits_off_the_table(g2):
+    """4-D digits must be (W, P, R, B) with the table's R and B: the proof and
+    row axes swapped, another row count or lane count, or 5-D digits are
+    refused before any launch."""
+    _need_card()
+    W, rows, B = 2, 2, 512
+    ops, tab = _k1_table(g2, rows, B)
+    name = "select_reduce_fp2" if g2 else "select_reduce_fp"
+    before = kernels.LAUNCHES[name]
+    for shape in ((W, rows, 3, B), (W, 3, rows + 1, B), (W, 3, rows, B // 2), (W, 1, 3, rows, B)):
+        digits = torch.zeros(shape, dtype=torch.int32, device="cuda")
+        with pytest.raises(ValueError):
+            k1.select_reduce_cuda(ops, tab, digits)
+    assert kernels.LAUNCHES[name] == before
 
 
 # (W, R, NT): even/odd rounds only; contiguous halvings before them (NT > 256)
@@ -252,3 +300,21 @@ def test_msm_finish_kernel_matches_plain(g2, W, R, NT):
         assert torch.equal(g, w)
     with pytest.raises(ValueError):
         finish_cuda.msm_finish_cuda(ops, tuple(c[..., :3].contiguous() for c in flat(S)[:3]))
+
+
+@pytest.mark.parametrize("g2", [False, True], ids=["g1", "g2"])
+def test_msm_finish_kernel_over_proof_rows(g2):
+    """The batched MSM's finish: K1's (W, P, R, n, NT) window sums as the
+    view (W, P R, n, NT) give, row for row, what P separate finishes give."""
+    _need_card()
+    spec = fs.BLS_FQ
+    W, P, R, NT = 3, 3, 2, 512
+    ops = prove_lm.sw_ops(groth16.pairing_config("bls12_381"), g2, "cuda")
+    planes = [_planes(spec, (W * P * R, spec.n, NT), 40 + i).reshape(W, P, R, spec.n, NT)
+              for i in range(6 if g2 else 3)]
+    pack = (lambda ps: tuple((ps[2 * i], ps[2 * i + 1]) for i in range(3))) if g2 else tuple
+    rows = finish_cuda.msm_finish_cuda(ops, pack([p.reshape(W, P * R, spec.n, NT) for p in planes]))
+    for p in range(P):
+        one = finish_cuda.msm_finish_cuda(ops, pack([c[:, p].contiguous() for c in planes]))
+        for g, w in zip(_flat(rows), _flat(one)):
+            assert torch.equal(g[p * R : (p + 1) * R], w)

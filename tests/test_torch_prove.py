@@ -28,12 +28,13 @@ def _one_thread():
     torch.set_num_threads(1)
 
 
-def cube_circuit(CS, gadgets, Fr, R):
-    """The toy circuit of __graft_entry__: out = w^3, plus a boolean select."""
+def cube_circuit(CS, gadgets, Fr, R, wv=8):
+    """The toy circuit of __graft_entry__: out = w^3, plus a boolean select;
+    the witness w = wv."""
     cs = CS(Fr)
-    out_val = pow(8, 3, R)
+    out_val = pow(wv, 3, R)
     out_v = gadgets.FpVar.new_input(cs, out_val)
-    w = gadgets.FpVar.new_witness(cs, 8)
+    w = gadgets.FpVar.new_witness(cs, wv)
     t = w * w
     (t * w).enforce_equal(out_v, "cube")
     b1 = gadgets.Boolean.new_witness(cs, 1)

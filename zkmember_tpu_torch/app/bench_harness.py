@@ -1,0 +1,222 @@
+"""Benchmark harness on the PyTorch/CUDA port (counterpart of
+zkmember_tpu.app.bench_harness): the reference's Criterion grid.
+
+Per registrar size: build the tree, pick a random member, time prove and
+verify on the limb-major prover (``prove_lm``); row names follow the
+reference's ``{curve}_{system}_{prove|verify}_{n}`` convention, one JSON
+line each.  Setup is timed too, or the key is loaded from
+``--checkpoint-dir``.  ``--batch P`` times P proofs of members of one
+registrar through ``prove_lm.prove_batch`` and reports proofs/sec.
+
+The port has the Groth16 BLS12-381 stack only: ``--systems marlin``,
+``--universal`` and ``--stack pedersen761`` are refused (exit 2).  Leaves
+are hashed on the host (``Member.hash``).  ``--device`` (default cuda)
+says where setup and the prover run; ``cpu`` runs the kernels' plain
+versions.
+
+Run: python -m zkmember_tpu_torch.app.bench_harness --sizes 16 --checkpoint-dir artifacts
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import random
+import sys
+import time
+from typing import NamedTuple
+
+from zkmember_tpu_torch.app import circuits as app
+from zkmember_tpu_torch.app.member import generate_members
+from zkmember_tpu_torch.snark import groth16, prove_lm
+from zkmember_tpu_torch.utils import checkpoint
+from zkmember_tpu_torch.utils import rng as frng
+
+# the reference's registrar sizes (benches/groth16.rs:9-20)
+DEFAULT_SIZES = [16, 50, 64, 100, 128, 512, 1000, 1024]
+CURVES = {"pedersen381": "bls12_381"}
+
+
+class Registrar(NamedTuple):
+    cfg: app.StackConfig
+    leaf_params: object
+    node_params: object
+    digests: list  # the members' leaf digests
+    tree: object
+
+
+def _registrar(stack: str, n_members: int) -> Registrar:
+    """The mock registrar of `n_members`, its CRH parameters from the test rng."""
+    cfg = app.get_config(stack)
+    leaf_params, node_params = cfg.setup_params(frng.test_rng())
+    digests = [m.hash(leaf_params) for m in generate_members(n_members)]
+    tree = app.new_membership_tree(leaf_params, node_params, digests)
+    return Registrar(cfg, leaf_params, node_params, digests, tree)
+
+
+def _circuit(reg: Registrar, idx: int):
+    """The constraint system of member `idx`'s membership proof."""
+    circuit = app.MerkleTreeCircuit(
+        config=reg.cfg, leaf_params=reg.leaf_params, node_params=reg.node_params,
+        root=reg.tree.root(), leaf_hash=reg.digests[idx],
+        authentication_path=reg.tree.generate_proof(idx),
+    )
+    return circuit.generate_constraints()
+
+
+def _build(stack: str, n_members: int):
+    """(constraint system, root, leaf) of a random member's proof."""
+    reg = _registrar(stack, n_members)
+    idx = random.Random(0).randrange(n_members)
+    return _circuit(reg, idx), reg.tree.root(), reg.digests[idx]
+
+
+def _timed_reps(fn, reps: int):
+    """reps wall times -> (last_result, [seconds...])."""
+    times, result = [], None
+    for _ in range(reps):
+        t0 = time.time()
+        result = fn()
+        times.append(time.time() - t0)
+    return result, times
+
+
+def _median(xs):
+    s = sorted(xs)
+    m = len(s) // 2
+    return s[m] if len(s) % 2 else (s[m - 1] + s[m]) / 2
+
+
+def _keys(cs, curve: str, n: int, rng, device, checkpoint_dir, out):
+    """The proving key for `cs`: loaded from `<dir>/groth16_<curve>_<n>` when
+    it exists (row `setup_load`), else made by setup (row `setup`) and saved
+    there when a directory is given."""
+    ck = os.path.join(checkpoint_dir, f"groth16_{curve}_{n}") if checkpoint_dir else None
+    if ck and os.path.exists(ck + ".json"):
+        t0 = time.time()
+        keys = checkpoint.load_groth16_keys(ck, device=device)
+        if out:
+            out(_row(curve, "groth16", "setup_load", n, time.time() - t0, cs, note="checkpoint"))
+        return keys
+    t0 = time.time()
+    pk, _ = groth16.setup(cs, curve=curve, rng=rng, device=device)
+    if out:
+        out(_row(curve, "groth16", "setup", n, time.time() - t0, cs, note="cold"))
+    if ck:
+        os.makedirs(checkpoint_dir, exist_ok=True)
+        checkpoint.save_groth16_keys(ck, pk)
+    return prove_lm.Groth16KeysLM(pk, device)
+
+
+def bench_groth16(stack: str, sizes, reps: int = 5, out=print, checkpoint_dir=None,
+                  device=None):
+    """Groth16 grid on the limb-major prover: per size, `reps` timed proves
+    after one warm-up, every rep plus {min, median}; verify likewise (at
+    least 3 reps)."""
+    curve = CURVES[stack]
+    rng = frng.test_rng()
+    for n in sizes:
+        cs, root, leaf = _build(stack, n)
+        keys = _keys(cs, curve, n, rng, device, checkpoint_dir, out)
+        prove_lm.warm(keys)
+        prove_lm.prove(keys, cs, rng=rng)  # warm-up
+        proof, times = _timed_reps(lambda: prove_lm.prove(keys, cs, rng=rng), reps)
+        for t in times:
+            out(_row(curve, "groth16", "prove", n, t, cs))
+        out(_row(curve, "groth16", "prove", n, min(times), cs,
+                 stats={"min": round(min(times), 4),
+                        "median": round(_median(times), 4), "reps": reps}))
+        ok, vtimes = _timed_reps(
+            lambda: groth16.verify(keys.pk.vk, [root, leaf], proof), max(reps, 3))
+        out(_row(curve, "groth16", "verify", n, min(vtimes), cs, ok=ok,
+                 stats={"min": round(min(vtimes), 4),
+                        "median": round(_median(vtimes), 4), "reps": len(vtimes)}))
+        if not ok:
+            raise RuntimeError(f"the {n}-member proof does not verify")
+
+
+def bench_groth16_batch(stack: str, n_members: int, batch: int, reps: int = 3, out=print,
+                        checkpoint_dir=None, device=None):
+    """Batched proving throughput (proofs/sec): `batch` members of ONE
+    registrar prove through ``prove_lm.prove_batch`` (one H pipeline, one K1
+    launch and one finish per MSM family for all of them), sharing the key
+    and its Straus tables."""
+    curve = CURVES[stack]
+    rng = frng.test_rng()
+    reg = _registrar(stack, n_members)
+    idxs = [random.Random(i).randrange(n_members) for i in range(batch)]
+    cs_list = [_circuit(reg, idx) for idx in idxs]
+    keys = _keys(cs_list[0], curve, n_members, rng, device, checkpoint_dir, None)
+    prove_lm.warm(keys)
+    proofs = prove_lm.prove_batch(keys, cs_list, rng=rng)  # warm-up
+    proofs, times = _timed_reps(lambda: prove_lm.prove_batch(keys, cs_list, rng=rng), reps)
+    best = min(times)
+    for idx, proof in zip(idxs, proofs):
+        if not groth16.verify(keys.pk.vk, [reg.tree.root(), reg.digests[idx]], proof):
+            raise RuntimeError(f"the batched proof of member {idx} does not verify")
+    out(_row(curve, "groth16_batch", "prove", n_members, best, cs_list[0], ok=True,
+             stats={"batch": batch, "proofs_per_sec": round(batch / best, 3),
+                    "median": round(_median(times), 4), "reps": reps}))
+
+
+def _row(curve, system, phase, n, seconds, cs, ok=None, note=None, stats=None):
+    row = {
+        "name": f"{curve}_{system}_{phase}_{n}",
+        "seconds": round(seconds, 4),
+        "constraints": cs.num_constraints,
+        "variables": cs.num_variables,
+    }
+    if ok is not None:
+        row["verified"] = bool(ok)
+    if note:
+        row["note"] = note
+    if stats:
+        row.update(stats)
+    return json.dumps(row)
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--stack", default="pedersen381",
+                    choices=["pedersen381", "pedersen761"])
+    ap.add_argument("--sizes", default="16")
+    ap.add_argument("--systems", default="groth16")
+    ap.add_argument("--universal", action="store_true")
+    ap.add_argument("--reps", type=int, default=5)
+    ap.add_argument("--checkpoint-dir", default=None)
+    ap.add_argument("--batch", type=int, default=0,
+                    help="batched-proving throughput mode: prove this many "
+                    "members of one registrar via prove_batch (proofs/sec)")
+    ap.add_argument("--device", default="cuda",
+                    help="where setup and the prover run (default cuda; cpu runs the "
+                         "kernels' plain versions)")
+    args = ap.parse_args(argv)
+    systems = args.systems.split(",")
+    refused = []
+    if args.stack not in CURVES:
+        refused.append(f"--stack {args.stack} (the port has pedersen381 only)")
+    if "marlin" in systems:
+        refused.append("--systems marlin (Marlin/KZG is not ported yet)")
+    if args.universal:
+        refused.append("--universal (Marlin's universal mode is not ported yet)")
+    if refused:
+        print("not ported yet: " + "; ".join(refused) + " (use zkmember_tpu.app.bench_harness)",
+              file=sys.stderr)
+        return 2
+    sizes = [int(s) for s in args.sizes.split(",")]
+    if args.batch:
+        bench_groth16_batch(args.stack, sizes[0], args.batch, reps=args.reps,
+                            checkpoint_dir=args.checkpoint_dir, device=args.device)
+        return 0
+    for system in systems:
+        if system != "groth16":
+            print(f"unknown system {system}", file=sys.stderr)
+            return 1
+        bench_groth16(args.stack, sizes, reps=args.reps, checkpoint_dir=args.checkpoint_dir,
+                      device=args.device)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

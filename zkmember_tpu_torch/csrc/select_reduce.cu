@@ -2,21 +2,29 @@
 //
 // Replaces the Pallas kernel zkmember_tpu/msm/pallas_msm.py::select_reduce
 // (kernel _kernel; in-kernel _fadd/_fsub/_fmul/_fmul_small/_rcb_add/
-// _swp_add/_swp_add_fp2).  For every window w and row r it picks, at each
-// lane i, the table entry tab[digit(w, r, i)] = [digit] P_i and sums the
-// lanes of each thread with complete projective additions (RCB a = 0).
+// _swp_add/_swp_add_fp2).  For every window w, proof p and row r it picks,
+// at each lane i, the table entry tab[digit(w, p, r, i)] = [digit] P_i and
+// sums the lanes of each thread with complete projective additions (RCB
+// a = 0).  The P proofs of a batch share the table.
 //
 //   tab     (16, R, B, 3 C n/2) 32-bit words: entry e of lane i of row r
 //           as one contiguous record, coordinates X, Y, Z, each of C = 1
 //           (Fp) or 2 (Fp2) components of n/2 words; entry 0 = identity
 //           (the wrapper packs the reference's (16, R, n, B) limb planes)
-//   digits  (W, R, B) int32 in [0, 16), most significant window first
-//   out     one (W, R, n, B / L) int32 plane per component
+//   digits  (W, P, R, B) int32 in [0, 16), most significant window first
+//   out     one (W, P, R, n, B / L) int32 plane per component
 //
-// Design.  Every (window, row, lane tile) is independent, so all of them
-// are on the grid: one warp per (window, tile), 4 warps a block for Fp and
-// 2 for Fp2, blockIdx.y the row (blockIdx.z is free for the reference's
-// proof-batch axis).  Thread j of tile t owns lanes t*32L + k*32 + j for k < L (a
+// Design.  Every (window, proof, row, lane tile) is independent, so all of
+// them are on the grid: one warp per (window, tile, proof), 4 warps a block
+// for Fp and 2 for Fp2, blockIdx.y the row.  The proof (the reference's
+// proof-batch axis; digits and outputs are indexed by (p, r), the table by
+// r only) is the fastest-varying part of the warp index, so the P proofs of
+// one (window, tile) run side by side and share the table records their
+// digits have in common (a third of a proof's digits are 0, the boolean
+// lanes' and the padding's).  That measured 6 % faster than the proof on
+// blockIdx.z for Fp at P = 4 and 8 on the digits of real batches, and
+// 1 % for Fp2 (H100 80GB HBM3 at 700 W, PERF.md).
+// Thread j of tile t owns lanes t*32L + k*32 + j for k < L (a
 // warp's loads are coalesced) and sums its L selections in order into
 // output lane t*32 + j; the narrow tail reduction (msm_finish.cu) sums the
 // B / L output lanes.  A warp-level halving tree inside the tile would
@@ -34,7 +42,8 @@
 //
 // Bound: operations.  Each output lane costs L - 1 complete additions
 // (12 field products, 36 base products for Fp2) against one table record
-// read per lane (144 B for Fp at n = 24, 288 B for Fp2).
+// read per lane (144 B for Fp at n = 24, 288 B for Fp2); the table (151 MB
+// for the 16-member G1 key) exceeds the 50 MB L2, hence the proofs' order.
 #include <cuda_runtime.h>
 
 #include "point.cuh"
@@ -68,20 +77,23 @@ constexpr int kBlocksPerSm = 227 * 1024 / (kSmemBytes<F> + 1024);
 template <class F>
 __global__ void __launch_bounds__(kThreads<F>, kBlocksPerSm<F>)
     select_reduce_kernel(const uint32_t* __restrict__ tab, const int32_t* __restrict__ digits,
-                         Planes pl, int W, int R, long long B, int L,
+                         Planes pl, int W, int proofs, int R, long long B, int L,
                          typename F::Consts consts) {
   extern __shared__ uint32_t smem[];
   const int j = threadIdx.x % kWarp;
   const long long tiles = B / (static_cast<long long>(kWarp) * L);
-  const long long g = (static_cast<long long>(blockIdx.x) * kThreads<F> + threadIdx.x) / kWarp;
-  if (g >= W * tiles) return;  // whole warps only; no block-wide barrier below
+  const long long gp = (static_cast<long long>(blockIdx.x) * kThreads<F> + threadIdx.x) / kWarp;
+  if (gp >= W * tiles * proofs) return;  // whole warps only; no block-wide barrier below
+  const long long g = gp / proofs;  // the P proofs of one (window, tile) side by side
+  const int p = static_cast<int>(gp - g * proofs);
   const int w = static_cast<int>(g / tiles);
   const long long t = g - w * tiles;
   const int r = blockIdx.y;
+  const long long pr = static_cast<long long>(p) * R + r;  // (proof, row)
   const zk::Slots<F> all{smem + threadIdx.x, kThreads<F>};
   const zk::Slots<F> P = all.at(0), T = all.at(3);
   constexpr int kRecord = 3 * zk::Slots<F>::kWords;  // words of one table entry
-  const int32_t* dig = digits + (static_cast<long long>(w) * R + r) * B;
+  const int32_t* dig = digits + (static_cast<long long>(w) * proofs * R + pr) * B;
   const long long lane0 = t * kWarp * L + j;
   auto record = [&](int k) {  // table entry selected at this thread's k-th lane
     const long long lane = lane0 + static_cast<long long>(k) * kWarp;
@@ -98,41 +110,45 @@ __global__ void __launch_bounds__(kThreads<F>, kBlocksPerSm<F>)
     }
   }
   const long long NT = tiles * kWarp;
-  const long long o = (static_cast<long long>(w) * R + r) * (2 * F::kN) * NT + t * kWarp + j;
+  const long long o =
+      (static_cast<long long>(w) * proofs * R + pr) * (2 * F::kN) * NT + t * kWarp + j;
   zk::st_point<F>(pl.out, o, NT, P);
 }
 
 template <class F>
-int launch(const void* tab, const void* digits, void* const* out, int W, int R, long long B,
-           int L, typename F::Consts consts, cudaStream_t stream) {
+int launch(const void* tab, const void* digits, void* const* out, int W, int P, int R,
+           long long B, int L, typename F::Consts consts, cudaStream_t stream) {
   Planes pl;
   for (int i = 0; i < 6; ++i) pl.out[i] = static_cast<int32_t*>(out[i]);
-  const long long threads = W * (B / L);  // one per output lane
+  const long long threads = W * (B / L) * P;  // one per output lane
   cudaError_t err = cudaFuncSetAttribute(select_reduce_kernel<F>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes<F>);
   if (err != cudaSuccess) return static_cast<int>(err);
   dim3 grid(static_cast<unsigned>((threads + kThreads<F> - 1) / kThreads<F>),
             static_cast<unsigned>(R));
   select_reduce_kernel<F><<<grid, kThreads<F>, kSmemBytes<F>, stream>>>(
-      static_cast<const uint32_t*>(tab), static_cast<const int32_t*>(digits), pl, W, R, B, L,
-      consts);
+      static_cast<const uint32_t*>(tab), static_cast<const int32_t*>(digits), pl, W, P, R, B,
+      L, consts);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // tab: (16, R, B, 3 C n16/2) words (C = 2 for fp2, else 1), 16-byte
-// aligned; digits: (W, R, B) int32; out: 6 device pointers (x0, x1, y0,
-// y1, z0, z1; the c1 entries unused for fp2 = 0) to (W, R, n16, B / L)
-// int32 planes.  p_words: host array of n16/2 words;
-// np0 = -p^-1 mod 2^32; b3 = b3c0 (+ b3c1 u for fp2).  Returns
-// cudaGetLastError() after the launch, or -1 for an unsupported shape.
+// aligned; digits: (W, P, R, B) int32; out: 6 device pointers (x0, x1,
+// y0, y1, z0, z1; the c1 entries unused for fp2 = 0) to (W, P, R, n16,
+// B / L) int32 planes; R at most 65,535 (the grid's y).
+// p_words: host array of n16/2 words; np0 = -p^-1 mod 2^32; b3 = b3c0
+// (+ b3c1 u for fp2).  Returns cudaGetLastError() after the launch, or
+// -1 for an unsupported shape.
 extern "C" int zk_select_reduce(int n16, int fp2, const void* tab, const void* digits,
-                                void* const* out, int W, int R, long long B, int L,
+                                void* const* out, int W, int P, int R, long long B, int L,
                                 const uint32_t* p_words, uint32_t np0, int b3c0, int b3c1,
                                 void* stream) {
-  if (n16 != 24 || L < 1 || B % (static_cast<long long>(kWarp) * L) != 0) return -1;
-  if (W == 0 || R == 0 || B == 0) return 0;
+  if (n16 != 24 || L < 1 || B % (static_cast<long long>(kWarp) * L) != 0 || R > 65535 ||
+      W < 0 || P < 0 || R < 0)
+    return -1;
+  if (W == 0 || P == 0 || R == 0 || B == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   constexpr int N = 12;
   zk::Mod<N> m;
@@ -140,8 +156,8 @@ extern "C" int zk_select_reduce(int n16, int fp2, const void* tab, const void* d
   m.np0 = np0;
   if (fp2) {
     typename zk::Fp2Field<N>::Consts c{m, b3c0, b3c1};
-    return launch<zk::Fp2Field<N>>(tab, digits, out, W, R, B, L, c, s);
+    return launch<zk::Fp2Field<N>>(tab, digits, out, W, P, R, B, L, c, s);
   }
   typename zk::FpField<N>::Consts c{m, b3c0};
-  return launch<zk::FpField<N>>(tab, digits, out, W, R, B, L, c, s);
+  return launch<zk::FpField<N>>(tab, digits, out, W, P, R, B, L, c, s);
 }

@@ -110,7 +110,8 @@ def library():
         lib.zk_mont_mul_bm.argtypes = [i32, vp, vp, vp, ll, ll, ll, ll, ll, ll, u32p, u32, vp]
         lib.zk_mont_mul_bm.restype = i32
         lib.zk_select_reduce.argtypes = [
-            i32, i32, vp, vp, ctypes.POINTER(vp), i32, i32, ll, i32, u32p, u32, i32, i32, vp,
+            i32, i32, vp, vp, ctypes.POINTER(vp), i32, i32, i32, ll, i32, u32p, u32, i32, i32,
+            vp,
         ]
         lib.zk_select_reduce.restype = i32
         vpp = ctypes.POINTER(vp)

@@ -1,8 +1,9 @@
 """K1: fused Straus window select plus lane reduction, a CUDA kernel and its plain version.
 
 Replaces the Pallas kernel ``zkmember_tpu/msm/pallas_msm.py::select_reduce``.
-The kernel is ``csrc/select_reduce.cu``: one warp per (window, lane tile),
-every window, row and tile on the grid; thread j of tile t sums its lanes
+The kernel is ``csrc/select_reduce.cu``: one warp per (window, lane tile,
+proof), every window, proof, row and tile on the grid, the P proofs of one
+(window, tile) side by side; thread j of tile t sums its lanes
 t*TL + k*T + j (k < L) in order into output lane t*T + j.  The narrow tail
 reduction (``finish_cuda``) sums the B / L output lanes.  The table has one
 layout, on every device: ``pack_records`` packs the limb planes into one
@@ -13,8 +14,11 @@ and window).
 Tensors (int32, 16-bit limbs, Montgomery form):
 
     records (16, R, B, 3 C n/2)   [0..15] P_i, entry 0 the identity (0, 1, 0)
-    digits  (W, R, B)             4-bit windows in [0, 16), most significant first
-    out     (W, R, n, B/L)        per-thread projective window sums, per component
+    digits  (W, [P,] R, B)        4-bit windows in [0, 16), most significant first
+    out     (W, [P,] R, n, B/L)   per-thread projective window sums, per component
+
+P is the reference's proof-batch axis: P proofs' digits against one shared
+table.
 
 ``select_reduce_plain`` adds in exactly the kernel's order, so the two
 agree limb for limb.  A CUDA tensor goes to the kernel; a CPU tensor takes
@@ -57,7 +61,13 @@ def _map(f, c):
 
 
 def select_reduce_plain(ops, records, digits):
-    """Plain PyTorch version on any device (same add order as the kernel)."""
+    """Plain PyTorch version on any device (same add order as the kernel).
+    Digits (W, P, R, B) run as (W P, R, B): each (window, proof) pair is
+    one more window against the shared table."""
+    if digits.ndim == 4:
+        W, P = digits.shape[:2]
+        S = select_reduce_plain(ops, records, digits.reshape((W * P,) + digits.shape[2:]))
+        return tuple(_map(lambda c: c.reshape((W, P) + c.shape[1:]), x) for x in S)
     tab = unpack_records(records, isinstance(ops.b3, tuple))
     R, n, B = _components(tab[0])[0].shape[1:]
     W = digits.shape[0]
@@ -111,14 +121,15 @@ def unpack_records(records, fp2: bool):
 
 
 def select_reduce_cuda(ops, records, digits):
-    """Launch the CUDA kernel (one launch for all windows and rows)."""
+    """Launch the CUDA kernel (one launch for all windows, proofs and rows)."""
     fp2, spec, b3 = kernel_consts(ops)
     n, C = spec.n, 6 if fp2 else 3
     shape = tuple(records.shape)
     if len(shape) != 4 or shape[0] != 16 or shape[3] != C * n // 2:
         raise ValueError(f"records must be (16, R, B, {C * n // 2}), got {shape}")
     _, R, B, _ = shape
-    W = digits.shape[0]
+    batched = digits.ndim == 4
+    W, P = digits.shape[0], digits.shape[1] if batched else 1
     T, L = tile_shape(B)
     if T != WARP or B % (T * L):
         raise ValueError(f"the kernel needs whole tiles of {WARP} threads x {L} lanes, got {B} lanes")
@@ -126,13 +137,14 @@ def select_reduce_cuda(ops, records, digits):
     for p in (records, digits):
         if not p.is_cuda or p.device != dev or p.dtype != torch.int32 or not p.is_contiguous():
             raise ValueError("select_reduce needs contiguous int32 tensors on one CUDA device")
-    if tuple(digits.shape) != (W, R, B):
-        raise ValueError(f"digits must be (W, {R}, {B}), got {tuple(digits.shape)}")
-    outs = [torch.empty((W, R, n, B // L), dtype=torch.int32, device=dev) for _ in range(C)]
+    if tuple(digits.shape) != ((W, P, R, B) if batched else (W, R, B)):
+        raise ValueError(f"digits must be (W, [P,] {R}, {B}), got {tuple(digits.shape)}")
+    lead = (W, P) if batched else (W,)
+    outs = [torch.empty(lead + (R, n, B // L), dtype=torch.int32, device=dev) for _ in range(C)]
     out_ptrs = (ctypes.c_void_p * 6)(*([o.data_ptr() for o in outs] + [0] * (6 - len(outs))))
     p_words, np0 = kernels.field_consts(spec)
     rc = kernels.launch(kernels.library().zk_select_reduce, dev, n, int(fp2),
-                        records.data_ptr(), digits.data_ptr(), out_ptrs, W, R, B, L, p_words,
+                        records.data_ptr(), digits.data_ptr(), out_ptrs, W, P, R, B, L, p_words,
                         np0, int(b3[0]), int(b3[1]))
     name = "select_reduce_fp2" if fp2 else "select_reduce_fp"
     kernels.check(rc, name)

@@ -117,19 +117,33 @@ def _lanes_leading(S):
 def msm_precomp_program(ops, tab, nwin: int, z, mark=None, prefix: str = ""):
     """MSM from a precomputed table through kernel K1, then the narrow tail
     reduction and the Horner join (``finish_cuda``).  tab: table_program's
-    records (16, R, B, 3 C n/2); z (..., [R,] nl, B) canonical scalar limbs.
+    records (16, R, B, 3 C n/2); z ([R,] nl, B) canonical scalar limbs.
     Returns projective coords ([R,] n, 1).  mark: optional phase clock
-    (utils.obs.PhaseClock), called after each stage as mark(prefix + stage)."""
+    (utils.obs.PhaseClock), called after each stage as mark(prefix + stage).
+    One proof of ``msm_precomp_batch``."""
+    acc = msm_precomp_batch(ops, tab, nwin, z[None], mark, prefix)
+    return tuple(_map_coord(lambda c: c[0], x) for x in acc)
+
+
+def msm_precomp_batch(ops, tab, nwin: int, z, mark=None, prefix: str = ""):
+    """P MSMs against ONE precomputed table (the reference's proof-batch
+    axis): z (P, [R,] nl, B) holds P proofs' scalars for the same key
+    points.  K1 runs once over digits (W, P, [R,] B); the finish runs once
+    over the P R rows of its window sums (a view).  Returns projective
+    coords with leading (P, [R]): (P, [R,] n, 1).  mark/prefix as in
+    ``msm_precomp_program``."""
     mark = mark or (lambda name: None)
-    digits = digits_from_limbs(z, nwin).contiguous()  # (W, [R,] B)
-    squeeze = digits.ndim == 2  # no leading row axis: R = 1
+    digits = digits_from_limbs(z, nwin).contiguous()  # (W, P, [R,] B)
+    squeeze = digits.ndim == 3  # no row axis: R = 1
     if squeeze:
-        digits = digits[:, None]
-    S = select_reduce_cuda.select_reduce(ops, tab, digits)
-    if squeeze:
-        S = tuple(_map_coord(lambda c: c[:, 0], x) for x in S)
+        digits = digits[:, :, None]
+    W, P, R, _ = digits.shape
+    S = select_reduce_cuda.select_reduce(ops, tab, digits)  # (W, P, R, n, NT)
     mark(prefix + "select_reduce")
-    acc = finish_cuda.msm_finish(ops, S)
+    rows = tuple(_map_coord(lambda c: c.reshape((W, P * R) + c.shape[3:]), x) for x in S)
+    acc = finish_cuda.msm_finish(ops, rows)  # (P R, n, 1)
+    lead = (P,) if squeeze else (P, R)
+    acc = tuple(_map_coord(lambda c: c.reshape(lead + c.shape[1:]), x) for x in acc)
     mark(prefix + "finish")
     return acc
 

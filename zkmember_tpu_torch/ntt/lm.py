@@ -85,9 +85,15 @@ def h_pipeline(spec: FieldSpec, abc, tw_inv, tw_fwd, perm, coset_fwd, coset_inv,
 
 def groth16_h(dlm: DomainLM, da, db, dc):
     """da/db/dc: (n, N) Montgomery matrix-eval planes -> canonical H limbs."""
+    return groth16_h_batch(dlm, torch.stack([da, db, dc]))
+
+
+def groth16_h_batch(dlm: DomainLM, dabc):
+    """dabc: ([P,] 3, n, N) Montgomery planes of P proofs -> ([P,] n, N)
+    canonical H limbs, every stage one product over all P proofs."""
     return h_pipeline(
         dlm.spec,
-        torch.stack([da, db, dc]),
+        dabc,
         dlm.tw_inv,
         dlm.tw_fwd,
         dlm.perm,

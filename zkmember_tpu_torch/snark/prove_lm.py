@@ -1,14 +1,16 @@
 """Groth16 prover on limb-major planes (counterpart of zkmember_tpu.snark.prove_lm).
 
-Pipeline per proof:
+Pipeline for a batch of P proofs over one key (``prove`` is a batch of one):
 
-  host    witness -> native CSR matvecs (A z, B z, C z)
-  device  H = coset-NTT pipeline (ntt.lm.groth16_h; products on kernel K2)
-  device  the four G1 MSMs (a, b1, l, h) as ONE stacked Straus MSM of 4 rows,
-          and the G2 MSM (b2), both from precomputed tables through kernel K1
+  host    witness -> native CSR matvecs (A z, B z, C z), per proof
+  device  H = coset-NTT pipeline over all P proofs (ntt.lm.groth16_h_batch;
+          products on kernel K2)
+  device  the four G1 MSMs (a, b1, l, h) of every proof as ONE stacked
+          Straus MSM of P x 4 rows, and the P G2 MSMs (b2), both from the
+          shared precomputed tables through kernel K1 (proof-batch axis)
           plus the narrow tail reduction and the Horner join
   device  one packed device -> host copy of every accumulator
-  host    randomized assembly (A, B, C from r, s)
+  host    randomized assembly (A, B, C from r, s), per proof
 
 Boolean witness lanes are merged into the general Straus lanes (0/1
 scalars select table entries 0/1).  Zero-padded lanes select entry 0, the
@@ -239,59 +241,86 @@ def _unflatten(x, it):
 
 def prove(keys: Groth16KeysLM, cs: ConstraintSystem, rng=None,
           phase_times: dict | None = None) -> "groth16.Proof":
-    """Groth16 prove on the limb-major stack.  rng defaults to OS entropy
-    for the proof randomizers r, s; tests pass utils.rng.test_rng().
-    phase_times: a dict to receive host seconds per phase (synchronizing
-    the card between phases); None (the default) adds no synchronization."""
+    """Groth16 prove on the limb-major stack: ``prove_batch`` of one proof.
+    rng defaults to OS entropy for the proof randomizers r, s; tests pass
+    utils.rng.test_rng().  phase_times: a dict to receive host seconds per
+    phase (synchronizing the card between phases); None (the default) adds
+    no synchronization."""
+    return prove_batch(keys, [cs], rng, phase_times)[0]
+
+
+def prove_batch(keys: Groth16KeysLM, cs_list, rng=None,
+                phase_times: dict | None = None) -> list["groth16.Proof"]:
+    """P independent proofs over ONE proving key (the reference's proof-batch
+    axis): one H pipeline over (P, 3, n, M), one G1 and one G2 MSM over the
+    shared Straus tables, one device -> host copy; witness and assembly run
+    per proof on the host.  Every proof's (r, s) is drawn first, in order,
+    so P calls of ``prove`` with the same rng give the same proofs.
+    rng and phase_times as in ``prove`` (the phases hold all P proofs)."""
     from zkmember_tpu_torch import native as zknative
 
+    if not cs_list:
+        raise ValueError("prove_batch needs at least one constraint system")
     pk = keys.pk
     cfg = keys.cfg
-    r_mod = cfg.r
-    g1, g2 = cfg.mod.G1, cfg.mod.G2
     rng = rng or frng.secure_rng()
-    rr = frng.field_element(rng, r_mod)
-    ss = frng.field_element(rng, r_mod)
+    randomizers = [(frng.field_element(rng, cfg.r), frng.field_element(rng, cfg.r))
+                   for _ in cs_list]
     fr = keys.fr
     M = keys.M
     dev = keys.device
     mark = obs.PhaseClock(phase_times, dev)
     nf = zknative.NativeField.get(fr.p, fr.n)
 
-    if nf is not None:
-        da, db, dc, _ = groth16._matrix_evals_native(cs, M, nf)
-    else:
-        da, db, dc = (fr.to_mont_host(v) for v in groth16._matrix_evals(cs, M))
-    da, db, dc = (_to_dev(fs.to_lm(x), dev) for x in (da, db, dc))
+    dabc = []
+    for cs in cs_list:
+        if nf is not None:
+            da, db, dc, _ = groth16._matrix_evals_native(cs, M, nf)
+        else:
+            da, db, dc = (fr.to_mont_host(v) for v in groth16._matrix_evals(cs, M))
+        dabc.append(np.stack([fs.to_lm(x) for x in (da, db, dc)]))
+    dabc = _to_dev(np.stack(dabc), dev)  # (P, 3, n, M)
     mark("matrix_evals")
-    h_limbs = nttlm.groth16_h(keys.domain_lm, da, db, dc)  # (n, M) canonical
+    h_limbs = nttlm.groth16_h_batch(keys.domain_lm, dabc)  # (P, n, M) canonical
     mark("h_pipeline")
 
-    z16 = _z_rows16(cs, fr)
-    zq = np.stack([_pad_lanes(z16[:, cols], keys.B1) for cols in keys.gen_cols])
+    zq, z2 = [], []
+    for cs in cs_list:
+        z16 = _z_rows16(cs, fr)
+        zq.append(np.stack([_pad_lanes(z16[:, cols], keys.B1) for cols in keys.gen_cols]))
+        z2.append(_pad_lanes(z16[:, keys.b_cols], keys.B2))
     h_pad = torch.nn.functional.pad(h_limbs, (0, keys.B1 - M))
-    z4 = torch.cat([_to_dev(zq, dev), h_pad[None]])  # (4, n, B1)
-    z2 = _to_dev(_pad_lanes(z16[:, keys.b_cols], keys.B2), dev)
+    z4 = torch.cat([_to_dev(np.stack(zq), dev), h_pad[:, None]], 1)  # (P, 4, n, B1)
+    z2 = _to_dev(np.stack(z2), dev)  # (P, n, B2)
     mark("witness_planes")
 
-    out4 = straus.msm_precomp_program(keys.ops1, keys.g1_tab, keys.nwin, z4, mark, "g1_")
-    out2 = straus.msm_precomp_program(keys.ops2, keys.g2_tab, keys.nwin, z2, mark, "g2_")
+    out4 = straus.msm_precomp_batch(keys.ops1, keys.g1_tab, keys.nwin, z4, mark, "g1_")
+    out2 = straus.msm_precomp_batch(keys.ops2, keys.g2_tab, keys.nwin, z2, mark, "g2_")
 
-    # ONE device -> host copy for every accumulator
+    # ONE device -> host copy for every accumulator of every proof
     leaves = _leaves((out4, out2))
     host = torch.cat([leaf.reshape(-1) for leaf in leaves]).cpu().numpy()
     parts, off = [], 0
     for leaf in leaves:
         parts.append(host[off : off + leaf.numel()].reshape(tuple(leaf.shape)))
         off += leaf.numel()
-    out4h, out2h = _unflatten((out4, out2), iter(parts))
+    out4h, out2h = _unflatten((out4, out2), iter(parts))  # (P, 4, n, 1), (P, n, 1)
     mark("fetch")
 
-    a_acc, b1_acc, l_acc, h_acc = (
-        straus.projective_to_host(g1, tuple(straus._row(c, i) for c in out4h))
-        for i in range(4)
-    )
-    b2_acc = straus.projective_to_host(g2, out2h)
+    proofs = []
+    for p, (rr, ss) in enumerate(randomizers):
+        g1_accs = [straus.projective_to_host(cfg.mod.G1, tuple(c[p, i] for c in out4h))
+                   for i in range(4)]
+        b2_acc = straus.projective_to_host(cfg.mod.G2, tuple(straus._row(c, p) for c in out2h))
+        proofs.append(_assemble(cfg, pk, rr, ss, g1_accs, b2_acc))
+    mark("assemble")
+    return proofs
+
+
+def _assemble(cfg, pk, rr, ss, g1_accs, b2_acc) -> "groth16.Proof":
+    """Host assembly of one proof from its MSMs: A, B and C with r and s."""
+    g1, g2, r_mod = cfg.mod.G1, cfg.mod.G2, cfg.r
+    a_acc, b1_acc, l_acc, h_acc = g1_accs
     A = g1.add(g1.add(pk.vk.alpha_g1, a_acc), g1.mul(rr, pk.delta_g1))
     B2 = g2.add(g2.add(pk.vk.beta_g2, b2_acc), g2.mul(ss, pk.vk.delta_g2))
     B1 = g1.add(g1.add(pk.beta_g1, b1_acc), g1.mul(ss, pk.delta_g1))
@@ -299,5 +328,4 @@ def prove(keys: Groth16KeysLM, cs: ConstraintSystem, rng=None,
     C = g1.add(C, g1.mul(ss, A))
     C = g1.add(C, g1.mul(rr, B1))
     C = g1.add(C, g1.mul((-rr * ss) % r_mod, pk.delta_g1))
-    mark("assemble")
     return groth16.Proof(curve=pk.curve, a=A, b=B2, c=C)
