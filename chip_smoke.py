@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--seed S]
         [--phases device,build,k2,k1,prove,k3,setup,prove_v1,cli,prove_batch,harness,
-                  scale[,profile]]
+                  scale,bw6[,profile]]
 
 Phases (each raises on failure, so the script exits non-zero):
   device  the card's name and power limit (nvidia-smi)
@@ -13,10 +13,11 @@ Phases (each raises on failure, so the script exits non-zero):
           timed at each operand shape of one prove_lm proof (k2_proof_shapes)
           and at one wave of the per-key table build: the wrapper (ms), the
           kernel alone (device_ms) and the host's time per call (host_us)
-  k1      select+reduce kernel (G1 Fp, G2 Fp2) against its plain version
-          from random points at R=1, B=4096, W=64, limb for limb; then the
-          finish kernel (tail reduction + Horner join) on its output against
-          the plain finish, limb for limb and as points
+  k1      select+reduce kernel against its plain version from random points
+          at R=1, B=4096, limb for limb, every variant: BLS12-381 G1 (Fp) and
+          G2 (Fp2) at W=64, BW6-761 G1 and G2 (Fp at n = 48, b3 = -3 and 12)
+          at W=95; then the finish kernel (tail reduction + Horner join) on
+          its output against the plain finish, limb for limb and as points
   prove   the 16-member Groth16 BLS12-381 membership proof from the committed
           key artifacts/groth16_bls12_381_16.* (M = 2^14, 64 windows): warm,
           one warm-up proof, one timed proof with every kernel's launch count
@@ -31,8 +32,9 @@ Phases (each raises on failure, so the script exits non-zero):
           one: K1's digits are (W, 1, R, B))
   k3      batch-major Montgomery-product kernel against its plain version,
           bit for bit, at n = 16, 24 and 48 (random rows, the rows 0, 1 and
-          p - 1, a broadcast (n,) operand), then timed at the v1 path's
-          shapes beside its plain version (ms, device_ms, host_us)
+          p - 1, a broadcast (n,) operand) for both stacks' fields, then
+          timed at the v1 path's shapes and at BW6-761's fixed-base wave
+          (n = 48) beside its plain version (ms, device_ms, host_us)
   setup   Groth16 setup of the 16-member circuit on the card, with the rng
           that made the committed key: all twelve query arrays of
           artifacts/groth16_bls12_381_16.npz, beta/delta, the vk and the
@@ -66,14 +68,27 @@ Phases (each raises on failure, so the script exits non-zero):
           row); the proof fails for a wrong leaf; one more proof holds every
           kernel call against its plain version; K1 and the finish timed at
           its shapes
+  bw6     the pedersen761 stack (Groth16 over BW6-761, Fq of 48 limbs for G1
+          and G2): the 16-member registrar and circuit (20,761 constraints,
+          M = 2^15); setup on the card; the key saved and loaded back; warm,
+          a warm-up and a timed prove_lm proof (launch counts reset just
+          before it: K2, and K1 and the finish at n = 48 only); verify and
+          the tampered proofs; phases; a checked table build (K2 at n = 48)
+          and a checked proof (K2 at n = 24, K1 and the finish at n = 48 for
+          G1 and G2, no copies); the v1 proof equal to prove_lm's, and one
+          more v1 proof with K3 held at every distinct shape; a batch of 4
+          equal to 4 sequential proofs, each bound to its leaf; K1 and the finish timed at the
+          proof's shapes and at P = 4; the bench harness (--stack
+          pedersen761, the saved key) and the CLI on 4 members in
+          subprocesses
   profile (optional, last) one more run of each prover path that ran
-          (prove, prove_batch at 8 proofs, scale, prove_v1) under
+          (prove, prove_batch at 8 proofs, scale, bw6, prove_v1) under
           torch.profiler: the kernels' device time, the device's idle
           share, the top kernels
 
 Progress goes to stderr.  stdout ends with a prove line, a setup/prove_v1
-line, a prove_batch/harness/scale line, the card line (nvidia-smi), one JSON
-"kernels" line and, last, {"ok": true, "device": ...}.
+line, a prove_batch/harness/scale line, a BW6-761 line, the card line
+(nvidia-smi), one JSON "kernels" line and, last, {"ok": true, "device": ...}.
 Imports nothing of JAX.  Needs one CUDA card; without one it exits 2.
 """
 
@@ -101,14 +116,18 @@ HOLD_CYCLES = 5_000_000  # about 3 ms of spinning at the H100's clocks
 
 RESULTS: dict = {}
 STATE: dict = {}  # keys and circuits handed from one phase to the next
-CIRCUITS: dict = {}  # members -> the registrar (and the rng state after its CRH params);
-# ("circuit", members) -> bench.py's circuit and its public inputs
+CIRCUITS: dict = {}  # (stack, members) -> the registrar (and the rng state after its CRH
+# params); ("circuit", stack, members) -> bench.py's circuit and its public inputs
 # prove_lm's path
 PROVE_M = 1 << 14  # the domain of the 16-member circuit's committed key
 PROVE_KERNELS = ("mont_mul", "select_reduce_fp", "select_reduce_fp2", "msm_finish_fp",
                  "msm_finish_fp2")
+# the BW6-761 stack's: K1 and the finish at n = 48 (Fp, both groups); K2 as above
+BW6_KERNELS = ("select_reduce_fp48", "msm_finish_fp48")
+BW6_M = 1 << 15  # the domain of the 16-member BW6-761 circuit
 ERRS: dict = {}  # kernel -> largest limb difference from its plain version
 CHECKS: dict = {}  # kernel -> the shapes at which it was held against it
+MSM_TIMES: list = []  # K1 and the finish timed at each path's shapes, one entry a group
 
 
 def log(msg: str) -> None:
@@ -238,14 +257,16 @@ def phase_k2(np_rng):
     RESULTS["mont_mul"] = RESULTS["mont_mul_shapes"][0]  # the shape of most launches
 
 
-def k2_proof_shapes(M: int, P: int = 1) -> dict:
+def k2_proof_shapes(M: int, P: int = 1, fr=None) -> dict:
     """K2's operand shapes in one prove_lm batch of P proofs (a proof is a
-    batch of one) of domain size M over BLS12-381 Fr, each with its
-    launches: the H pipeline of ntt/lm.py (the prove and prove_batch phases
-    check this table against the proofs' own calls)."""
+    batch of one) of domain size M over the scalar field `fr` (default
+    BLS12-381 Fr), each with its launches: the H pipeline of ntt/lm.py (the
+    prove, prove_batch and bw6 phases check this table against the proofs'
+    own calls)."""
     from zkmember_tpu_torch.fields import spec as fs
 
-    f, n, h, log_m = fs.BLS_FR.name, fs.BLS_FR.n, M // 2, M.bit_length() - 1
+    fr = fr or fs.BLS_FR
+    f, n, h, log_m = fr.name, fr.n, M // 2, M.bit_length() - 1
     return {
         (f, (P, 3, n, h), (n, h)): 2 * log_m,  # the stages of the stacked iNTT and coset NTT
         (f, (P, n, h), (n, h)): log_m,  # the stages of the coset iNTT
@@ -335,67 +356,75 @@ def select_reduce_plain_sliced(ops, tab, digits, lanes: int = 8 * 4 * (1 << 14))
 
 
 def phase_k1(np_rng, py_rng):
+    """K1 and the finish on random points, every variant: BLS12-381 G1 (Fp,
+    n = 24) and G2 (Fp2) at the proof's 64 windows, BW6-761 G1 (b3 = -3) and
+    G2 (b3 = 12), both Fp at n = 48, at its 95 windows."""
     import numpy as np
     import torch
 
-    from zkmember_tpu_torch.curves import bls12_381 as bls
+    from zkmember_tpu_torch.curves import bls12_381 as bls, bw6_761 as bw6
     from zkmember_tpu_torch.fields import spec as fs
     from zkmember_tpu_torch.msm import finish_cuda as fin, select_reduce_cuda as k1, straus
     from zkmember_tpu_torch.snark import groth16, prove_lm
 
-    cfg = groth16.pairing_config("bls12_381")
-    B, W = 4096, 64
-    for g2 in (False, True):
-        ops = prove_lm.sw_ops(cfg, g2, "cuda")
-        curve, gen = (bls.G2, bls.G2_GEN) if g2 else (bls.G1, bls.G1_GEN)
-        X, Y = _planes_of(fs.BLS_FQ, _host_points(curve, gen, B, py_rng), g2)
-        tab = straus.table_program(ops, X, Y)  # records (16, 1, B, .)
-        scal = [py_rng.randrange(bls.R) for _ in range(B)]
-        z = torch.as_tensor(fs.to_lm(fs.ints_to_limbs(scal, 16)).astype(np.int64),
-                            dtype=torch.int32, device="cuda")
-        digits = straus.digits_from_limbs(z, W)[:, None].contiguous()  # (W, 1, B)
-        got = k1.select_reduce_cuda(ops, tab, digits)
-        want = k1.select_reduce_plain(ops, tab, digits)
-        name = "select_reduce_fp2" if g2 else "select_reduce_fp"
-        _hold(name, f"random points W={W} R=1 B={B}", got, want)
-        fname = "msm_finish_fp2" if g2 else "msm_finish_fp"
-        NT = got[0][0].shape[-1] if g2 else got[0].shape[-1]
-        _hold(fname, f"K1's output W={W} R=1 NT={NT}", fin.msm_finish_cuda(ops, got),
-              fin.msm_finish_plain(ops, got))
-        sg, sw = (tuple(straus._map_coord(lambda c: c[:, 0], x) for x in S) for S in (got, want))
-        pts = [straus.projective_to_host(curve, _to_numpy(acc))  # (W, n, NT): no row axis
-               for acc in (fin.msm_finish_cuda(ops, sg), fin.msm_finish_plain(ops, sw))]
-        if pts[0] is None or any(p != pts[0] for p in pts):
-            raise AssertionError(f"K1 {name} and the finish give another point than the plain versions")
-        log(f"K1 {name} R=1 B={B} W={W} and {fname} (NT={NT}): limb-exact, the same point")
+    B = 4096
+    for curve_name, mod, W in (("bls12_381", bls, 64), ("bw6_761", bw6, 95)):
+        cfg = groth16.pairing_config(curve_name)
+        for g2 in (False, True):
+            ops = prove_lm.sw_ops(cfg, g2, "cuda")
+            curve, gen = (mod.G2, mod.G2_GEN) if g2 else (mod.G1, mod.G1_GEN)
+            fp2 = g2 and cfg.g2_fp2
+            X, Y = _planes_of(cfg.fq_spec, _host_points(curve, gen, B, py_rng), fp2)
+            tab = straus.table_program(ops, X, Y)  # records (16, 1, B, .)
+            scal = [py_rng.randrange(mod.R) for _ in range(B)]
+            z = torch.as_tensor(fs.to_lm(fs.ints_to_limbs(scal, cfg.fr_spec.n)).astype(np.int64),
+                                dtype=torch.int32, device="cuda")
+            digits = straus.digits_from_limbs(z, W)[:, None].contiguous()  # (W, 1, B)
+            got = k1.select_reduce_cuda(ops, tab, digits)
+            want = k1.select_reduce_plain(ops, tab, digits)
+            name = k1.variant("select_reduce", fp2, cfg.fq_spec.n)
+            where = f"{curve_name} {'G2' if g2 else 'G1'} b3={ops.b3} random points W={W} R=1 B={B}"
+            _hold(name, where, got, want)
+            fname = name.replace("select_reduce", "msm_finish")
+            NT = got[0][0].shape[-1] if fp2 else got[0].shape[-1]
+            _hold(fname, f"K1's output {where} NT={NT}", fin.msm_finish_cuda(ops, got),
+                  fin.msm_finish_plain(ops, got))
+            sg, sw = (tuple(straus._map_coord(lambda c: c[:, 0], x) for x in S)
+                      for S in (got, want))
+            pts = [straus.projective_to_host(curve, _to_numpy(acc))  # (W, n, NT): no row axis
+                   for acc in (fin.msm_finish_cuda(ops, sg), fin.msm_finish_plain(ops, sw))]
+            if pts[0] is None or any(p != pts[0] for p in pts):
+                raise AssertionError(f"K1 {name} and the finish give another point than the "
+                                     f"plain versions at {where}")
+            log(f"K1 {name} and {fname} at {where} (NT={NT}): limb-exact, the same point")
 
 
-def _registrar(members: int):
-    """The mock registrar of `members`, built exactly as bench.py builds it
-    (once per run): its CRH parameters, leaf digests and tree, and the rng's
-    state after the parameters (what bench.py's setup found)."""
-    if members not in CIRCUITS:
+def _registrar(members: int, stack: str = "pedersen381"):
+    """The mock registrar of `members` on a curve stack, built exactly as
+    bench.py builds it (once per run): its CRH parameters, leaf digests and
+    tree, and the rng's state after the parameters (what bench.py's setup
+    found)."""
+    if (stack, members) not in CIRCUITS:
         from zkmember_tpu_torch.app import circuits as app
         from zkmember_tpu_torch.app.member import generate_members
         from zkmember_tpu_torch.utils import rng as frng
 
         t = time.time()
         rng = frng.test_rng()
-        cfg = app.get_config("pedersen381")
+        cfg = app.get_config(stack)
         leaf_params, node_params = cfg.setup_params(rng)
         digests = [m.hash(leaf_params) for m in generate_members(members)]
         tree = app.new_membership_tree(leaf_params, node_params, digests)
-        CIRCUITS[members] = (cfg, leaf_params, node_params, digests, tree, rng.getstate())
-        STATE["leaf_params"] = leaf_params
-        log(f"{members}-member registrar built in {time.time() - t:.1f}s")
-    return CIRCUITS[members]
+        CIRCUITS[stack, members] = (cfg, leaf_params, node_params, digests, tree, rng.getstate())
+        log(f"{members}-member {stack} registrar built in {time.time() - t:.1f}s")
+    return CIRCUITS[stack, members]
 
 
-def _member_circuit(members: int, idx: int):
+def _member_circuit(members: int, idx: int, stack: str = "pedersen381"):
     """Member idx's membership circuit and its public inputs (root, leaf)."""
     from zkmember_tpu_torch.app import circuits as app
 
-    cfg, leaf_params, node_params, digests, tree, _ = _registrar(members)
+    cfg, leaf_params, node_params, digests, tree, _ = _registrar(members, stack)
     circuit = app.MerkleTreeCircuit(
         config=cfg, leaf_params=leaf_params, node_params=node_params,
         root=tree.root(), leaf_hash=digests[idx], authentication_path=tree.generate_proof(idx),
@@ -403,23 +432,23 @@ def _member_circuit(members: int, idx: int):
     return circuit.generate_constraints(), [tree.root(), digests[idx]]
 
 
-def _membership_circuit(members: int):
+def _membership_circuit(members: int, stack: str = "pedersen381"):
     """bench.py's circuit, the proof of a random member of the registrar (built
     once per run), and a fresh rng in the state bench.py's setup found."""
     import random
 
-    key = ("circuit", members)
+    key = ("circuit", stack, members)
     if key not in CIRCUITS:
-        CIRCUITS[key] = _member_circuit(members, random.Random(0).randrange(members))
+        CIRCUITS[key] = _member_circuit(members, random.Random(0).randrange(members), stack)
     cs, public = CIRCUITS[key]
-    return cs, public, _rng_at(_registrar(members)[-1])
+    return cs, public, _rng_at(_registrar(members, stack)[-1])
 
 
 def phase_prove(np_rng):
     import torch
 
     from zkmember_tpu_torch import kernels
-    from zkmember_tpu_torch.snark import groth16, prove_lm
+    from zkmember_tpu_torch.snark import prove_lm
     from zkmember_tpu_torch.utils import checkpoint
 
     cs, public, rng = _membership_circuit(16)
@@ -460,16 +489,7 @@ def phase_prove(np_rng):
     log("phases of a proof synchronized at each phase: " + ", ".join(
         f"{k} {v:.3f}s" for k, v in RESULTS["breakdown"].items()))
 
-    vk = keys.pk.vk
-    if not groth16.verify(vk, public, proof):
-        raise AssertionError("the proof does not verify")
-    g1 = keys.cfg.mod.G1
-    bad_c = groth16.Proof(curve=proof.curve, a=proof.a, b=proof.b, c=g1.neg(proof.c))
-    if groth16.verify(vk, public, bad_c):
-        raise AssertionError("a proof with C negated verifies")
-    if groth16.verify(vk, [public[0], (public[1] + 1) % keys.cfg.r], proof):
-        raise AssertionError("the proof verifies for a wrong public input")
-    log("proof verifies; negated C and a wrong public input are rejected")
+    _holds_and_tamper_fails(keys.cfg, keys.pk.vk, public, proof, "proof")
     _, k2_shapes = checked_run(lambda: prove_lm.prove(keys, cs, rng=rng), "proof")
     if sum(k2_shapes.values()) != launches["mont_mul"]:
         raise AssertionError(f"the checked proof's K2 calls {k2_shapes} differ from the timed proof's")
@@ -478,65 +498,69 @@ def phase_prove(np_rng):
                              f"{k2_proof_shapes(keys.M)} that phase k2 times")
     # K1 and finish times at the proof's shapes, each beside its plain version
     # (phase k2 times K2 at the proof's shapes)
-    RESULTS.update(time_msm_kernels(np_rng, keys, 1, "timed"))
+    time_msm_kernels(np_rng, keys, 1, "proof", launches)
 
 
-def time_msm_kernels(np_rng, keys, P: int, where: str) -> dict:
-    """K1 (both variants) on random digits of the shape a batch of P proofs
+def time_msm_kernels(np_rng, keys, P: int, where: str, launches: dict) -> None:
+    """K1 (G1 and G2) on random digits of the shape a batch of P proofs
     over `keys` gives it, (W, P, R, B), and the finish on its output viewed
     as (W, P R, n, NT), as prove_lm's batched MSM does: each held against
-    its plain version on the same inputs, then timed beside it."""
+    its plain version on the same inputs, then timed beside it.  Appends one
+    entry per (kernel, group) to MSM_TIMES, with `path` (where) and the
+    launches that fall to its group in that path's timed run (`launches`)."""
     import torch
 
-    from zkmember_tpu_torch.fields import spec as fs
     from zkmember_tpu_torch.msm import finish_cuda as fin, select_reduce_cuda as k1, straus
 
-    spec = fs.BLS_FQ
+    spec = keys.cfg.fq_spec
     imads_per_mul = _imads(spec)
     W, n = keys.nwin, spec.n
-    out = {}
-    for g2, tab, R, B in ((False, keys.g1_tab, 4, keys.B1), (True, keys.g2_tab, 1, keys.B2)):
+    share = 1 if keys.cfg.g2_fp2 else 2  # groups that run one variant (BW6-761: both)
+    for group, tab, R, B in (("G1", keys.g1_tab, 4, keys.B1), ("G2", keys.g2_tab, 1, keys.B2)):
+        g2 = group == "G2"
         ops = keys.ops2 if g2 else keys.ops1
+        fp2 = g2 and keys.cfg.g2_fp2
         dig = torch.as_tensor(np_rng.integers(0, 16, size=(W, P, R, B)), dtype=torch.int32,
                               device="cuda")
-        name = "select_reduce_fp2" if g2 else "select_reduce_fp"
+        name = k1.variant("select_reduce", fp2, n)
         S = k1.select_reduce_cuda(ops, tab, dig)
         err = _hold(name, f"{where} W={W} P={P} R={R} B={B}", S,
                     select_reduce_plain_sliced(ops, tab, dig))
         _, L = k1.tile_shape(B)
         NT = B // L
-        nc = 2 if g2 else 1
-        prods = 12 * (3 if g2 else 1)  # base products of one complete addition
+        nc = 2 if fp2 else 1
+        prods = 12 * (3 if fp2 else 1)  # base products of one complete addition
         point_bytes = 3 * nc * n * 4
         rows = P * R
-        out[name] = {
-            "shape": [W, P, R, B], "proofs": P, "max_abs_err": err,
+        MSM_TIMES.append({
+            "name": name, "group": group, "path": where, "launches": launches[name] // share,
+            "shape": [W, P, R, B], "max_abs_err": err,
             "ms": cuda_ms(lambda: k1.select_reduce_cuda(ops, tab, dig)),
             "plain_ms": cuda_ms(lambda: select_reduce_plain_sliced(ops, tab, dig), reps=1,
                                 rounds=1, warmup=False),
             "bound": _bound(16 * R * B * point_bytes + W * rows * B * 4
                             + W * rows * NT * point_bytes,
                             W * rows * (B - NT) * prods * imads_per_mul),
-        }
+        })
         # the finish on this K1 output, its P R rows as one axis: NT lanes a
         # window, then the join
-        fname = "msm_finish_fp2" if g2 else "msm_finish_fp"
+        fname = k1.variant("msm_finish", fp2, n)
         Sv = tuple(straus._map_coord(lambda c: c.reshape(W, rows, n, NT), x) for x in S)
         err = _hold(fname, f"{where} W={W} rows={rows} NT={NT}", fin.msm_finish_cuda(ops, Sv),
                     fin.msm_finish_plain(ops, Sv))
         chain = 5 * W  # dependent additions of one row's join
-        out[fname] = {
-            "shape": [W, rows, NT], "proofs": P, "max_abs_err": err,
+        MSM_TIMES.append({
+            "name": fname, "group": group, "path": where, "launches": launches[fname] // share,
+            "shape": [W, rows, NT], "max_abs_err": err,
             "ms": cuda_ms(lambda: fin.msm_finish_cuda(ops, Sv)),
             "plain_ms": cuda_ms(lambda: fin.msm_finish_plain(ops, Sv), reps=1, rounds=1,
                                 warmup=False),
             "bound": _bound(W * rows * NT * point_bytes + rows * point_bytes,
                             (W * rows * (NT - 1) + chain * rows) * prods * imads_per_mul),
-        }
-    for k, r in out.items():
-        log(f"{k} at {r['shape']} ({where}): kernel {r['ms']:.3f} ms, plain "
-            f"{r['plain_ms']:.1f} ms, bound {r['bound'][0]:.4f} ms ({r['bound'][1]})")
-    return out
+        })
+    for r in MSM_TIMES[-4:]:
+        log(f"{r['name']} {r['group']} at {r['shape']} ({where}): kernel {r['ms']:.3f} ms, "
+            f"plain {r['plain_ms']:.1f} ms, bound {r['bound'][0]:.4f} ms ({r['bound'][1]})")
 
 
 def checked_run(run, what: str):
@@ -576,18 +600,21 @@ def checked_run(run, what: str):
         finally:
             in_plain[0] -= 1
 
+    def variant(kernel, ops):
+        fp2, spec, _ = k1.kernel_consts(ops)
+        return k1.variant(kernel, fp2, spec.n)
+
     def select_reduce_checked(ops, tab, digits):
         out = select_reduce_cuda(ops, tab, digits)
-        name = "select_reduce_fp2" if isinstance(ops.b3, tuple) else "select_reduce_fp"
-        _hold(name, f"{what} digits {tuple(digits.shape)}", out,
+        _hold(variant("select_reduce", ops), f"{what} digits {tuple(digits.shape)}", out,
               plain(select_reduce_plain_sliced, ops, tab, digits))
         return out
 
     def msm_finish_checked(ops, S):
         out = msm_finish_cuda(ops, S)
         c = S[0][0] if isinstance(S[0], tuple) else S[0]
-        name = "msm_finish_fp2" if isinstance(ops.b3, tuple) else "msm_finish_fp"
-        _hold(name, f"{what} {tuple(c.shape)}", out, plain(fin.msm_finish_plain, ops, S))
+        _hold(variant("msm_finish", ops), f"{what} {tuple(c.shape)}", out,
+              plain(fin.msm_finish_plain, ops, S))
         return out
 
     lm_cuda.mont_mul_cuda, k1.select_reduce_cuda = mont_mul_checked, select_reduce_checked
@@ -664,11 +691,11 @@ def raw_launch(fn, prepare, spec, a, b):
     return (lambda: fn(*args, stream)), (out, operands)
 
 
-def _shape_row(r: dict, launches: int) -> dict:
+def _shape_row(r: dict) -> dict:
     """A kernel's entry of the kernels line at one more shape of a path."""
-    return {"shape": r["shape"], "launches": launches, "max_abs_err": r["max_abs_err"],
-            "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
-            "bound_by": r["bound"][1], "library_ms": None}
+    row = {k: r[k] for k in ("path", "group", "shape", "launches", "max_abs_err", "ms",
+                             "plain_ms") if k in r}
+    return {**row, "bound_ms": r["bound"][0], "bound_by": r["bound"][1], "library_ms": None}
 
 
 def _bound(nbytes: float, imads: float):
@@ -699,6 +726,9 @@ def phase_profile():
         prove_s = next(r["seconds"] for r in RESULTS["scale"]["rows"]
                        if r["name"].endswith("depth32_prove"))
         _profile("profile_scale", prove_s, lambda: prove_lm.prove(keys, cs))
+    if "bw6" in STATE:
+        keys, cs, rng = STATE["bw6"]
+        _profile("profile_bw6", RESULTS["bw6"]["prove_s"], lambda: prove_lm.prove(keys, cs, rng=rng))
     if "pk_v1" in STATE:
         cs, _, rng = _membership_circuit(16)
         _profile("profile_v1", RESULTS["prove_v1_s"],
@@ -785,7 +815,8 @@ def phase_k3(np_rng):
     from zkmember_tpu_torch.fields import field_cuda, spec as fs
 
     k3 = field_cuda.mont_mul_bm_cuda
-    for spec, rows in ((fs.BLS_FR, 8192), (fs.BLS_FQ, 65536), (fs.BW6_FQ, 4096)):
+    for spec, rows in ((fs.BLS_FR, 8192), (fs.BLS_FQ, 65536), (fs.BW6_FR, 8192),
+                       (fs.BW6_FQ, 4096)):
         a = rand_rows(np_rng, spec, (rows, spec.n))
         b = rand_rows(np_rng, spec, (rows, spec.n))
         _hold("mont_mul_bm", f"{spec.name} ({rows}, {spec.n})", k3(spec, a, b),
@@ -803,7 +834,8 @@ def phase_k3(np_rng):
     # times at the v1 path's shapes: an NTT stage of the H pipeline (three
     # stacked transforms and one), the fixed-base step's six stacked products
     # over a 16,384-row tile, and the widest Pippenger wave (six stacked
-    # products over the (32 windows, 8192 pairs) grid)
+    # products over the (32 windows, 8192 pairs) grid); then BW6-761's
+    # fixed-base step (Fq at n = 48, the same tile)
     from zkmember_tpu_torch import kernels
 
     lib = kernels.library()
@@ -811,16 +843,18 @@ def phase_k3(np_rng):
     for spec, shape, b_shape in ((fs.BLS_FR, (8192, 16), (8192, 16)),
                                  (fs.BLS_FR, (3, 8192, 16), (8192, 16)),
                                  (fs.BLS_FQ, (6, 16384, 24), (6, 16384, 24)),
-                                 (fs.BLS_FQ, (6, 32, 8192, 24), (6, 32, 8192, 24))):
+                                 (fs.BLS_FQ, (6, 32, 8192, 24), (6, 32, 8192, 24)),
+                                 (fs.BW6_FQ, (6, 16384, 48), (6, 16384, 48))):
         a = rand_rows(np_rng, spec, shape)
         b = rand_rows(np_rng, spec, b_shape)
-        _hold("mont_mul_bm", f"timed {shape} x {b_shape}", k3(spec, a, b),
-              mont_mul_bm_plain_rows(spec, a, b))
+        err = _hold("mont_mul_bm", f"timed {spec.name} {shape} x {b_shape}", k3(spec, a, b),
+                    mont_mul_bm_plain_rows(spec, a, b))
         rows = a.numel() // spec.n
         nbytes = (a.numel() + b.numel() + a.numel()) * 4
         raw, keep = raw_launch(lib.zk_mont_mul_bm, field_cuda.prepare, spec, a, b)
         timed.append({
-            "shape": list(shape), "operand_b": list(b.shape),
+            "field": spec.name, "shape": list(shape), "operand_b": list(b.shape),
+            "max_abs_err": err,
             "ms": cuda_ms(lambda: k3(spec, a, b)),
             "device_ms": device_ms(raw),
             "host_us": host_us(lambda: k3(spec, a, b)),
@@ -834,6 +868,7 @@ def phase_k3(np_rng):
             f"{r['plain_ms']:.2f} ms, bound {r['bound'][0]:.4f} ms ({r['bound'][1]})")
     RESULTS["mont_mul_bm_shapes"] = timed
     RESULTS["mont_mul_bm"] = timed[2]  # the fixed-base / curve-op wave
+    RESULTS["mont_mul_bm_bw6"] = timed[4]  # the same wave over BW6-761 Fq
 
 
 def phase_setup():
@@ -950,7 +985,7 @@ def phase_prove_v1():
     log(f"timed v1 proof in {prove_s:.3f}s; launches {launches}")
     if launches["mont_mul_bm"] == 0:
         raise AssertionError("the v1 proof launched no mont_mul_bm")
-    if any(launches[k] for k in PROVE_KERNELS):
+    if any(launches[k] for k in PROVE_KERNELS + BW6_KERNELS):
         raise AssertionError(f"the v1 proof launched limb-major kernels: {launches}")
     RESULTS["prove_v1_s"] = prove_s
     RESULTS["launches_v1"] = launches
@@ -961,14 +996,7 @@ def phase_prove_v1():
     log("phases of a v1 proof synchronized at each phase: " + ", ".join(
         f"{k} {v:.3f}s" for k, v in RESULTS["breakdown_v1"].items()))
 
-    if not groth16.verify(vk, public, proof):
-        raise AssertionError("the v1 proof does not verify")
-    g1 = groth16.pairing_config("bls12_381").mod.G1
-    bad_c = groth16.Proof(curve=proof.curve, a=proof.a, b=proof.b, c=g1.neg(proof.c))
-    if groth16.verify(vk, public, bad_c):
-        raise AssertionError("a v1 proof with C negated verifies")
-    if groth16.verify(vk, [public[0], (public[1] + 1) % g1.order], proof):
-        raise AssertionError("the v1 proof verifies for a wrong leaf")
+    _holds_and_tamper_fails(groth16.pairing_config("bls12_381"), vk, public, proof, "v1 proof")
     keys = STATE.get("keys") or checkpoint.load_groth16_keys(
         os.path.join(REPO, "artifacts", "groth16_bls12_381_16"), device="cuda")
     lm_proof = prove_lm.prove(keys, cs, rng=_rng_at(state))
@@ -977,8 +1005,7 @@ def phase_prove_v1():
                              "same keys and rng state")
     if not groth16.verify(keys.pk.vk, public, lm_proof):
         raise AssertionError("the limb-major proof does not verify")
-    log("v1 proof verifies, negated C and a wrong leaf are rejected, and it equals "
-        "prove_lm's proof from the committed key with the same rng state")
+    log("the v1 proof equals prove_lm's proof from the committed key with the same rng state")
     checked = checked_v1_proof(pk, cs, _rng_at(state))
     if (checked.a, checked.b, checked.c) != (proof.a, proof.b, proof.c):
         raise AssertionError("the checked v1 proof differs from the timed one")
@@ -992,13 +1019,30 @@ def _rng_at(state):
     return rng
 
 
+def _holds_and_tamper_fails(cfg, vk, public, proof, what: str) -> None:
+    """Raise unless `proof` verifies for `public`, and neither it with C
+    negated nor it for a wrong last public input (the leaf plus one) does."""
+    from zkmember_tpu_torch.snark import groth16
+
+    if not groth16.verify(vk, public, proof):
+        raise AssertionError(f"the {what} does not verify")
+    bad_c = groth16.Proof(curve=proof.curve, a=proof.a, b=proof.b, c=cfg.mod.G1.neg(proof.c))
+    if groth16.verify(vk, public, bad_c):
+        raise AssertionError(f"a {what} with C negated verifies")
+    if groth16.verify(vk, [*public[:-1], (public[-1] + 1) % cfg.r], proof):
+        raise AssertionError(f"the {what} verifies for a wrong public input")
+    log(f"{what} verifies; negated C and a wrong public input are rejected")
+
+
 def _cli(args, env, cwd, stdin=None, want_rc=0):
     t = time.time()
     res = subprocess.run(
         [sys.executable, "-m", "zkmember_tpu_torch.app.cli", *args], input=stdin,
         capture_output=True, text=True, env=env, cwd=cwd, timeout=900,
     )
-    log(f"cli {args[0]}: exit {res.returncode} in {time.time() - t:.1f}s")
+    cmd = next(a for a in args if a in ("register", "root", "prove", "verify", "interactive"))
+    log(f"cli {' '.join(args[:args.index(cmd) + 1])}: exit {res.returncode} in "
+        f"{time.time() - t:.1f}s")
     if res.returncode != want_rc:
         raise AssertionError(f"cli {args} exited {res.returncode}, expected {want_rc}:\n"
                              f"{res.stdout[-2000:]}\n{res.stderr[-4000:]}")
@@ -1016,40 +1060,52 @@ def _cli_value(out: str, label: str) -> str:
 
 
 def phase_cli():
+    RESULTS["cli_s"] = _cli_members("pedersen381", 16, 5, 5)
+
+
+def _cli_members(stack: str, members: int, prove_id: int, other_idx: int) -> float:
+    """The CLI with --stack in subprocesses: `interactive` registers members
+    1 .. members - 1 and `register` the last, `root`, `prove --id prove_id`
+    (inline verification true), `verify` (exit 0) and `verify` against the
+    leaf of the member at other_idx in the state file (exit 1).  Returns the
+    seconds."""
     import tempfile
 
     from zkmember_tpu_torch.app.member import Member
 
     t0 = time.time()
+    st = ["--stack", stack]
     with tempfile.TemporaryDirectory(dir=REPO, prefix=".cli_") as tmp:
         env = dict(os.environ, PYTHONPATH=REPO, ZKMEMBER_STATE=os.path.join(tmp, "state.json"))
-        stdin = "".join(f"1\n{i}\n{i}@usc.edu\n" for i in range(1, 16)) + "q\n"
-        _cli(["interactive"], env, tmp, stdin=stdin)
-        out = _cli(["register", "--id", "16", "--email", "16@usc.edu"], env, tmp)
-        if _cli_value(out, "Number of Members:") != "16":
-            raise AssertionError(f"the registrar does not hold 16 members:\n{out}")
+        stdin = "".join(f"1\n{i}\n{i}@usc.edu\n" for i in range(1, members)) + "q\n"
+        _cli(st + ["interactive"], env, tmp, stdin=stdin)
+        out = _cli(st + ["register", "--id", str(members), "--email", f"{members}@usc.edu"],
+                   env, tmp)
+        if _cli_value(out, "Number of Members:") != str(members):
+            raise AssertionError(f"the {stack} registrar does not hold {members} members:\n{out}")
         root = int(_cli_value(out, "Merkle Root:"), 16)
-        if int(_cli(["root"], env, tmp).strip(), 16) != root:
-            raise AssertionError("`root` differs from the root `register` printed")
-        out = _cli(["prove", "--id", "5"], env, tmp)
+        if int(_cli(st + ["root"], env, tmp).strip(), 16) != root:
+            raise AssertionError(f"{stack} `root` differs from the root `register` printed")
+        out = _cli(st + ["prove", "--id", str(prove_id)], env, tmp)
         if _cli_value(out, "Inline verification:") != "True":
-            raise AssertionError(f"prove's inline verification failed:\n{out}")
+            raise AssertionError(f"{stack} prove's inline verification failed:\n{out}")
         leaf, proof, vk = (_cli_value(out, k) for k in ("Leaf:", "Proof:", "VK:"))
         if int(_cli_value(out, "Root:"), 16) != root:
-            raise AssertionError("prove used another root")
-        _cli(["verify", "--root", hex(root), "--leaf", leaf, "--proof", proof, "--vk", vk],
+            raise AssertionError(f"{stack} prove used another root")
+        _cli(st + ["verify", "--root", hex(root), "--leaf", leaf, "--proof", proof, "--vk", vk],
              env, tmp)
         with open(env["ZKMEMBER_STATE"]) as f:
-            other = Member.from_json(json.dumps(json.load(f)[5]))  # member "6"
-        _membership_circuit(16)  # the CRH parameters
-        other_leaf = hex(other.hash(STATE["leaf_params"]))
+            other = Member.from_json(json.dumps(json.load(f)[other_idx]))
+        # the leaf CRH parameters, the same at every registrar size
+        other_leaf = hex(other.hash(_registrar(16, stack)[1]))
         if int(other_leaf, 16) == int(leaf, 16):
             raise AssertionError("two members share a leaf")
-        _cli(["verify", "--root", hex(root), "--leaf", other_leaf, "--proof", proof,
-              "--vk", vk], env, tmp, want_rc=1)
-    RESULTS["cli_s"] = time.time() - t0
-    log(f"cli: 16 members registered, prove verified inline, verify accepts the proof "
-        f"and rejects another member's leaf ({RESULTS['cli_s']:.1f}s)")
+        _cli(st + ["verify", "--root", hex(root), "--leaf", other_leaf, "--proof", proof,
+                   "--vk", vk], env, tmp, want_rc=1)
+    seconds = time.time() - t0
+    log(f"cli {stack}: {members} members registered, prove verified inline, verify accepts "
+        f"the proof and rejects another member's leaf ({seconds:.1f}s)")
+    return seconds
 
 
 # ---------------------------------------------------------------------------
@@ -1061,6 +1117,37 @@ BATCH_CHECKED, BATCH_TIMED = 4, 8  # proofs in the checked and the timed batch
 
 def _same_proof(a, b) -> bool:
     return (a.a, a.b, a.c) == (b.a, b.b, b.c)
+
+
+def _batch_equals_sequential(keys, circuits, state, what: str):
+    """prove_batch over circuits [(cs, public), ...] from rng `state`,
+    launches counted: raise unless each proof equals the sequential prove
+    call's with the same rng state, verifies, and is rejected for the next
+    member's leaf.  Returns the proofs, the batch's seconds and launches."""
+    import torch
+
+    from zkmember_tpu_torch import kernels
+    from zkmember_tpu_torch.snark import groth16, prove_lm
+
+    P = len(circuits)
+    kernels.reset_launches()
+    torch.cuda.synchronize()
+    t = time.time()
+    proofs = prove_lm.prove_batch(keys, [c for c, _ in circuits], rng=_rng_at(state))
+    seconds = time.time() - t
+    launches = dict(kernels.LAUNCHES)
+    seq_rng = _rng_at(state)
+    for i, (proof, (cs, public)) in enumerate(zip(proofs, circuits)):
+        if not _same_proof(proof, prove_lm.prove(keys, cs, rng=seq_rng)):
+            raise AssertionError(f"{what} proof {i} differs from the sequential proof")
+        if not groth16.verify(keys.pk.vk, public, proof):
+            raise AssertionError(f"{what} proof {i} does not verify")
+        other = circuits[(i + 1) % P][1]
+        if groth16.verify(keys.pk.vk, [public[0], other[1]], proof):
+            raise AssertionError(f"{what} proof {i} verifies for another member's leaf")
+    log(f"{what} of {P} (first) in {seconds:.2f}s: every proof verifies, equals {P} sequential "
+        "prove calls with the same rng state, and is rejected for another member's leaf")
+    return proofs, seconds, launches
 
 
 def phase_prove_batch(np_rng):
@@ -1092,21 +1179,7 @@ def phase_prove_batch(np_rng):
 
     # checked batch: equal to sequential proofs, each verifies, bound to its leaf
     P = BATCH_CHECKED
-    t = time.time()
-    proofs = prove_lm.prove_batch(keys, cs_all[:P], rng=_rng_at(state))
-    log(f"batch of {P} (first) in {time.time() - t:.2f}s")
-    seq_rng = _rng_at(state)
-    seq = [prove_lm.prove(keys, cs, rng=seq_rng) for cs in cs_all[:P]]
-    for i, (proof, single, (_, public)) in enumerate(zip(proofs, seq, circuits)):
-        if not _same_proof(proof, single):
-            raise AssertionError(f"batched proof {i} differs from the sequential proof")
-        if not groth16.verify(vk, public, proof):
-            raise AssertionError(f"batched proof {i} does not verify")
-        other = circuits[(i + 1) % P][1]
-        if groth16.verify(vk, [public[0], other[1]], proof):
-            raise AssertionError(f"batched proof {i} verifies for another member's leaf")
-    log(f"batch of {P}: every proof verifies, equals {P} sequential prove calls with the same "
-        "rng state, and is rejected for another member's leaf")
+    proofs, _, _ = _batch_equals_sequential(keys, circuits[:P], state, "batch")
     checked, k2_shapes = checked_run(
         lambda: prove_lm.prove_batch(keys, cs_all[:P], rng=_rng_at(state)), f"batch of {P}")
     if not all(_same_proof(a, b) for a, b in zip(checked, proofs)):
@@ -1132,7 +1205,7 @@ def phase_prove_batch(np_rng):
         launches = dict(kernels.LAUNCHES)
         expect = {"mont_mul": 3 * (keys.M.bit_length() - 1) + 6, "select_reduce_fp": 1,
                   "select_reduce_fp2": 1, "msm_finish_fp": 2, "msm_finish_fp2": 2,
-                  "mont_mul_bm": 0}
+                  "mont_mul_bm": 0, "select_reduce_fp48": 0, "msm_finish_fp48": 0}
         if launches != expect:
             raise AssertionError(f"the batch of {P} launched {launches}, not {expect}")
         if not all(groth16.verify(vk, circuits[i][1], p) for i, p in enumerate(proofs)):
@@ -1156,10 +1229,8 @@ def phase_prove_batch(np_rng):
     out["launches"] = out[f"P{BATCH_TIMED}"]["launches"]
     RESULTS["prove_batch"] = out
     STATE["batch"] = (keys, cs_all[:BATCH_TIMED])
-    RESULTS["batched"] = {}
     for P in (BATCH_CHECKED, BATCH_TIMED):
-        for k, r in time_msm_kernels(np_rng, keys, P, f"batch of {P}").items():
-            RESULTS["batched"].setdefault(k, []).append(r)
+        time_msm_kernels(np_rng, keys, P, f"batch of {P}", out[f"P{P}"]["launches"])
 
 
 def _run_module(module: str, args, want_rc: int = 0):
@@ -1253,14 +1324,195 @@ def phase_scale(np_rng):
     RESULTS["scale"] = {"rows": rows, "M": keys.M, "constraints": cs.num_constraints,
                         "launches": by["prove"]["launches"],
                         "setup_launches": by["setup"]["launches"]}
-    RESULTS["scale_kernels"] = time_msm_kernels(np_rng, keys, 1, "depth 32")
+    time_msm_kernels(np_rng, keys, 1, "depth 32", RESULTS["scale"]["launches"])
     STATE["scale"] = (keys, cs)
     log("scale: the depth-32 proof verifies, a wrong leaf is rejected, every kernel call "
         "of a checked proof equals its plain version")
 
 
+# ---------------------------------------------------------------------------
+# the second curve stack: pedersen761, Groth16 over BW6-761
+# ---------------------------------------------------------------------------
+
+
+def _bw6_key_matches(pk, loaded) -> None:
+    """Raise unless a loaded key holds setup's key: every query plane limb for
+    limb, the index lists, beta, delta and the verifying key."""
+    import numpy as np
+
+    from zkmember_tpu_torch.utils import checkpoint
+    from zkmember_tpu_torch.utils import serialize as ser
+
+    got, want = checkpoint.query_arrays(loaded), checkpoint.query_arrays(pk)
+    if sorted(got) != sorted(want) or len(want) != 10:
+        raise AssertionError(f"the loaded key's arrays {sorted(got)} are not setup's {sorted(want)}")
+    for k in want:
+        if got[k].shape != want[k].shape or not np.array_equal(got[k], want[k]):
+            raise AssertionError(f"the loaded key's {k} differs from setup's")
+    for attr in ("a_nonzero", "b_nonzero", "l_nonzero", "domain_size", "num_instance",
+                 "beta_g1", "delta_g1"):
+        if getattr(loaded, attr) != getattr(pk, attr):
+            raise AssertionError(f"the loaded key's {attr} differs from setup's")
+    if ser.vk_to_bytes(loaded.vk) != ser.vk_to_bytes(pk.vk):
+        raise AssertionError("the loaded verifying key differs from setup's")
+
+
+def phase_bw6(np_rng):
+    """The pedersen761 stack end to end on the card: the 16-member BW6-761
+    registrar and circuit (20,761 constraints, M = 2^15, Fr of 24 limbs,
+    Fq of 48 for G1 and G2); setup on the card; the key saved and loaded
+    back; a timed prove_lm proof through K1 and the finish at n = 48, K2
+    and no other kernel; verify and the tampered proofs; phases; a checked
+    table build and proof (every kernel call against its plain version);
+    the v1 proof equal to prove_lm's; a batch of 4 equal to 4 sequential
+    proofs; K1 and the finish timed at the proof's shapes and at P = 4;
+    the bench harness and the CLI with --stack pedersen761 in
+    subprocesses."""
+    import random
+    import tempfile
+
+    import torch
+
+    from zkmember_tpu_torch import kernels
+    from zkmember_tpu_torch.fields import spec as fs
+    from zkmember_tpu_torch.snark import groth16, prove_lm
+    from zkmember_tpu_torch.utils import checkpoint
+
+    stack, curve = "pedersen761", "bw6_761"
+    out: dict = {}
+    cs, public, rng = _membership_circuit(16, stack)
+    if (cs.num_constraints, cs.num_variables) != (20761, 20757):
+        raise AssertionError(f"the BW6-761 circuit has {cs.num_constraints} constraints and "
+                             f"{cs.num_variables} variables, not the reference's 20,761 and 20,757")
+    log(f"bw6 circuit: {cs.num_constraints} constraints, {cs.num_variables} vars")
+
+    kernels.reset_launches()
+    torch.cuda.synchronize()
+    phases: dict = {}
+    t = time.time()
+    pk, vk = groth16.setup(cs, curve, rng, device="cuda", phase_times=phases)
+    out["setup"] = {"setup_s": time.time() - t, **phases}
+    out["setup_launches"] = {k: v for k, v in kernels.LAUNCHES.items() if v}
+    if out["setup_launches"].get("mont_mul_bm", 0) == 0 or pk.domain_size != BW6_M:
+        raise AssertionError(f"the BW6-761 setup launched {out['setup_launches']} at "
+                             f"M = {pk.domain_size}")
+    log(f"bw6 setup in {out['setup']['setup_s']:.2f}s (phases synchronized): " + ", ".join(
+        f"{k} {v:.3f}s" for k, v in phases.items()) + f"; launches {out['setup_launches']}")
+    state = rng.getstate()  # what the proofs below draw r and s from
+
+    tmp = tempfile.TemporaryDirectory(dir=REPO, prefix=".bw6_")
+    try:
+        ck = os.path.join(tmp.name, f"groth16_{curve}_16")
+        t = time.time()
+        checkpoint.save_groth16_keys(ck, pk)
+        keys = checkpoint.load_groth16_keys(ck, device="cuda")
+        _bw6_key_matches(pk, keys.pk)
+        out["save_load_s"] = time.time() - t
+        log(f"bw6 key saved and loaded back in {out['save_load_s']:.1f}s: the same key")
+        t = time.time()
+        prove_lm.warm(keys)
+        out["keys_warm_s"] = time.time() - t
+        log(f"bw6 keys: M={keys.M}, G1 lanes 4x{keys.B1}, G2 lanes {keys.B2}, {keys.nwin} "
+            f"windows, b3 {keys.ops1.b3} / {keys.ops2.b3}; warm in {out['keys_warm_s']:.1f}s")
+        t = time.time()
+        prove_lm.prove(keys, cs, rng=_rng_at(state))
+        log(f"bw6 warm-up proof in {time.time() - t:.2f}s")
+
+        kernels.reset_launches()
+        torch.cuda.synchronize()
+        t = time.time()
+        proof = prove_lm.prove(keys, cs, rng=_rng_at(state))
+        out["prove_s"] = time.time() - t
+        launches = dict(kernels.LAUNCHES)
+        expect = dict.fromkeys(kernels.LAUNCHES, 0)
+        expect.update({"mont_mul": 3 * (keys.M.bit_length() - 1) + 6, "select_reduce_fp48": 2,
+                       "msm_finish_fp48": 4})
+        log(f"bw6 timed proof in {out['prove_s']:.3f}s; launches {launches}")
+        if launches != expect:
+            raise AssertionError(f"the BW6-761 proof launched {launches}, not {expect}")
+        out["launches"] = launches
+
+        _holds_and_tamper_fails(keys.cfg, vk, public, proof, "BW6-761 proof")
+
+        phases = {}
+        t = time.time()
+        prove_lm.prove(keys, cs, rng=_rng_at(state), phase_times=phases)
+        out["breakdown"] = {"total_s": time.time() - t, **phases}
+        log("bw6 phases of a proof synchronized at each phase: " + ", ".join(
+            f"{k} {v:.3f}s" for k, v in out["breakdown"].items()))
+
+        # every kernel call held against its plain version: the per-key table
+        # build (K2 at n = 48), then a proof (K2 at n = 24, K1 and the finish
+        # at n = 48 for G1 and G2)
+        fresh = prove_lm.Groth16KeysLM(keys.pk, "cuda")
+        _, k2_tables = checked_run(fresh.build_tables, "bw6 table build")
+        del fresh
+        if {f for f, _, _ in k2_tables} != {fs.BW6_FQ.name}:
+            raise AssertionError(f"the BW6-761 table build ran K2 at {sorted(k2_tables)}")
+        checked, k2_shapes = checked_run(lambda: prove_lm.prove(keys, cs, rng=_rng_at(state)),
+                                         "bw6 proof")
+        if not _same_proof(checked, proof):
+            raise AssertionError("the checked BW6-761 proof differs from the timed one")
+        if k2_shapes != k2_proof_shapes(keys.M, 1, fs.BW6_FR):
+            raise AssertionError(f"the BW6-761 proof's K2 shapes {k2_shapes} differ from "
+                                 f"{k2_proof_shapes(keys.M, 1, fs.BW6_FR)}")
+        out["k2_table_shapes"] = [[list(a), list(b), k] for (_, a, b), k in k2_tables.items()]
+
+        # the v1 (batch-major) prover on setup's key, from the same rng state;
+        # then one more with K3 held against its plain version at every
+        # distinct shape (BW6-761 Fr at n = 24, Fq at n = 48)
+        kernels.reset_launches()
+        torch.cuda.synchronize()
+        t = time.time()
+        v1 = groth16.prove(pk, cs, rng=_rng_at(state), device="cuda")
+        out["prove_v1_s"] = time.time() - t
+        out["launches_v1"] = {k: v for k, v in kernels.LAUNCHES.items() if v}
+        if set(out["launches_v1"]) != {"mont_mul_bm"}:
+            raise AssertionError(f"the BW6-761 v1 proof launched {out['launches_v1']}")
+        if not _same_proof(v1, proof):
+            raise AssertionError("the BW6-761 v1 proof differs from prove_lm's with the same "
+                                 "keys and rng state")
+        log(f"bw6 v1 proof in {out['prove_v1_s']:.2f}s ({out['launches_v1']['mont_mul_bm']} K3 "
+            "launches) equals the prove_lm proof")
+        if not _same_proof(checked_v1_proof(pk, cs, _rng_at(state)), v1):
+            raise AssertionError("the checked BW6-761 v1 proof differs from the timed one")
+
+        # a batch of 4 distinct members equals 4 sequential proofs
+        idxs = random.Random(1).sample(range(16), BATCH_CHECKED)
+        circuits = [_member_circuit(16, i, stack) for i in idxs]
+        _, out["prove_batch_s"], out["launches_batch"] = _batch_equals_sequential(
+            keys, circuits, state, f"BW6-761 batch (members {idxs})")
+        if out["launches_batch"] != expect:
+            raise AssertionError(f"the BW6-761 batch launched {out['launches_batch']}, "
+                                 f"not {expect}")
+        STATE["bw6"] = (keys, cs, _rng_at(state))
+
+        time_msm_kernels(np_rng, keys, 1, "bw6 proof", launches)
+        time_msm_kernels(np_rng, keys, BATCH_CHECKED, f"bw6 batch of {BATCH_CHECKED}",
+                         out["launches_batch"])
+
+        # the harness on the saved key, in a subprocess
+        t = time.time()
+        rows = [json.loads(line) for line in _run_module(
+            "zkmember_tpu_torch.app.bench_harness",
+            ["--stack", stack, "--sizes", "16", "--checkpoint-dir", tmp.name, "--reps", "3"],
+        ).splitlines() if line.startswith("{")]
+        out["harness"] = {"rows": rows, "wall_s": time.time() - t}
+        names = [r["name"] for r in rows]
+        want = (["bw6_761_groth16_setup_load_16"] + ["bw6_761_groth16_prove_16"] * 4
+                + ["bw6_761_groth16_verify_16"])
+        if names != want or rows[-1].get("verified") is not True:
+            raise AssertionError(f"the pedersen761 harness rows {rows} are not {want}, verified")
+        log(f"bw6 harness: rows {names}, verified")
+    finally:
+        tmp.cleanup()
+
+    out["cli_s"] = _cli_members(stack, 4, 2, 2)
+    RESULTS["bw6"] = out
+
+
 PHASES = ("device", "build", "k2", "k1", "prove", "k3", "setup", "prove_v1", "cli",
-          "prove_batch", "harness", "scale")
+          "prove_batch", "harness", "scale", "bw6")
 
 
 def main() -> int:
@@ -1308,6 +1560,8 @@ def main() -> int:
             phase_harness()
         elif name == "scale":
             phase_scale(np_rng)
+        elif name == "bw6":
+            phase_bw6(np_rng)
         elif name == "profile":
             phase_profile()
         else:
@@ -1339,6 +1593,10 @@ def main() -> int:
             "scale": RESULTS["scale"],
             "device": RESULTS["device"], "nvidia_smi": RESULTS["smi"],
         }))
+        print(json.dumps({
+            "metric": "groth16_bw6_761_pedersen761_16members", **RESULTS["bw6"],
+            "device": RESULTS["device"], "nvidia_smi": RESULTS["smi"],
+        }))
         print(RESULTS["smi"])
         sources = {
             "mont_mul": ("zkmember_tpu_torch/csrc/mont_mul.cu",
@@ -1353,39 +1611,44 @@ def main() -> int:
                               "zkmember_tpu/msm/straus.py:76,204"),
             "msm_finish_fp2": ("zkmember_tpu_torch/csrc/msm_finish.cu",
                                "zkmember_tpu/msm/straus.py:76,204"),
+            "select_reduce_fp48": ("zkmember_tpu_torch/csrc/select_reduce.cu",
+                                   "zkmember_tpu/msm/pallas_msm.py:268"),
+            "msm_finish_fp48": ("zkmember_tpu_torch/csrc/msm_finish.cu",
+                                "zkmember_tpu/msm/straus.py:76,204"),
         }
         rows = []
         for name in kernels.LAUNCHES:
             src, rep = sources[name]
-            r = RESULTS[name]
-            # launches of the path that runs the kernel: prove_lm's timed
-            # proof for K1/K2, the v1 timed proof for K3
-            runs = RESULTS["launches" if name in PROVE_KERNELS else "launches_v1"]
+            msm = [m for m in MSM_TIMES if m["name"] == name]
+            if msm:  # K1 and the finish: the first path's first group, the rest as shapes
+                r, more = msm[0], msm[1:]
+                launches = sum(m["launches"] for m in msm if m["path"] == r["path"])
+            else:  # K2 at prove_lm's proof, K3 at the v1 proof's fixed-base wave
+                r = RESULTS[name]
+                launches = RESULTS["launches" if name in PROVE_KERNELS else "launches_v1"][name]
+                more = []
             row = {
                 "name": name, "route": "cuda", "source": src, "replaces": rep,
-                "launches": runs[name], "max_abs_err": ERRS[name],
+                "launches": launches, "max_abs_err": ERRS[name],
                 "check": f"bit-exact against the plain version at {len(CHECKS[name])} "
-                         "shapes, every shape of one proof among them",
+                         "shapes, every shape of one proof of each path among them",
                 "ms": r["ms"], "plain_ms": r["plain_ms"],
                 "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
                 "library_ms": None, "shape": r["shape"],
             }
-            for k in ("operand_b", "device_ms", "host_us"):  # the field products
+            row["path"] = r.get("path", "proof" if name in PROVE_KERNELS else "v1 proof")
+            for k in ("group", "operand_b", "device_ms", "host_us"):
                 if k in r:
                     row[k] = r[k]
-            # the batched prover's and the depth-32 proof's shapes: launches of
-            # their timed runs (K3: the depth-32 setup)
-            batch = RESULTS["prove_batch"]
-            if name in RESULTS["batched"]:
-                row["batched"] = [_shape_row(b, batch[f"P{b['proofs']}"]["launches"][name])
-                                  for b in RESULTS["batched"][name]]
-                row["scale"] = _shape_row(RESULTS["scale_kernels"][name],
-                                          RESULTS["scale"]["launches"][name])
-            elif name == "mont_mul":
-                row["batched_launches"] = batch[f"P{BATCH_TIMED}"]["launches"][name]
+            if name == "mont_mul":  # launches of the batched, depth-32 and BW6-761 proofs
+                row["batched_launches"] = RESULTS["prove_batch"]["launches"][name]
                 row["scale_launches"] = RESULTS["scale"]["launches"][name]
-            else:
+                row["bw6_launches"] = RESULTS["bw6"]["launches"][name]
+            elif name == "mont_mul_bm":  # the depth-32 setup; BW6-761's v1 proof at n = 48
                 row["scale_launches"] = RESULTS["scale"]["setup_launches"][name]
+                more = [dict(RESULTS["mont_mul_bm_bw6"], path="bw6 v1 proof",
+                             launches=RESULTS["bw6"]["launches_v1"][name])]
+            row["shapes"] = [_shape_row(m) for m in more]
             rows.append(row)
         print(json.dumps({"kernels": rows}))
         print(json.dumps({"ok": True, "device": {

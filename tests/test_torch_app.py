@@ -117,7 +117,7 @@ def test_keys_reject_more_lanes_than_the_domain():
     with pytest.raises(ValueError, match="exceed the domain size"):
         prove_lm.keys_from_numpy(planes, domain_size=pk.domain_size // 2, **kw)
     with pytest.raises(ValueError, match="unsupported curve"):
-        groth16.pairing_config("bw6_761")
+        groth16.pairing_config("bn254")
 
 
 def test_entry_points_default_to_the_card(monkeypatch):

@@ -1,6 +1,6 @@
 """The port's app harnesses (``app/bench_harness.py``, ``app/scale.py``)
 against the JAX package's: the bench rows, the refusals of what the port
-does not have, the checkpoint load, the synthetic depth-32 paths and the
+does not have, the checkpoint load (a pedersen761 key too), the synthetic depth-32 paths and the
 batched scale circuit."""
 
 import json
@@ -48,12 +48,42 @@ def test_row_matches_reference(kw):
     (["--systems", "marlin"], "marlin"),
     (["--systems", "groth16,marlin"], "marlin"),
     (["--universal"], "--universal"),
-    (["--stack", "pedersen761"], "pedersen761"),
+    (["--stack", "pedersen761", "--systems", "marlin"], "marlin"),
 ], ids=["marlin", "groth16_marlin", "universal", "pedersen761"])
 def test_main_refuses_what_is_not_ported(argv, what, capsys):
+    """Marlin is refused on either stack; pedersen761 itself is ported
+    (its rows: test_pedersen761_rows_on_toy_keys)."""
     assert bench_harness.main(argv + ["--device", "cpu"]) == 2
     err = capsys.readouterr().err
-    assert what in err and "not ported" in err
+    assert what in err and "not ported" in err and "pedersen761" not in err
+
+
+def test_pedersen761_rows_on_toy_keys(tmp_path):
+    """--stack pedersen761 reaches the BW6-761 key: a toy key saved as
+    <dir>/groth16_bw6_761_16 loads through `_keys` (row
+    bw6_761_groth16_setup_load_16) as a BW6-761 Groth16KeysLM, and the
+    grid's rows carry the reference's names."""
+    from zkmember_tpu_torch.curves import bw6_761 as bw6
+    from zkmember_tpu_torch.r1cs import gadgets as g
+    from zkmember_tpu_torch.r1cs.cs import ConstraintSystem
+    from zkmember_tpu_torch.snark import groth16
+    from zkmember_tpu_torch.utils import checkpoint
+
+    assert bench_harness.CURVES["pedersen761"] == "bw6_761"
+    cs = ConstraintSystem(bw6.Fr)
+    out = g.FpVar.new_input(cs, 125)
+    w = g.FpVar.new_witness(cs, 5)
+    (w * w * w).enforce_equal(out, "cube")
+    pk, _ = groth16.setup(cs, "bw6_761", frng.test_rng(), host=True)
+    checkpoint.save_groth16_keys(str(tmp_path / "groth16_bw6_761_16"), pk)
+    rows = []
+    keys = bench_harness._keys(cs, "bw6_761", 16, frng.test_rng(), "cpu", str(tmp_path),
+                               rows.append)
+    assert keys.cfg.name == "bw6_761" and keys.ops2.F.spec.n == 48 and keys.nwin == 95
+    assert [json.loads(r)["name"] for r in rows] == ["bw6_761_groth16_setup_load_16"]
+    row = bench_harness._row("bw6_761", "groth16", "prove", 16, 1.5, cs, ok=True)
+    assert row == jbench._row("bw6_761", "groth16", "prove", 16, 1.5, cs, ok=True)
+    assert json.loads(row)["name"] == "bw6_761_groth16_prove_16"
 
 
 def test_main_rejects_an_unknown_system(capsys):

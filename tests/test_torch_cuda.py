@@ -318,3 +318,86 @@ def test_msm_finish_kernel_over_proof_rows(g2):
         one = finish_cuda.msm_finish_cuda(ops, pack([c[:, p].contiguous() for c in planes]))
         for g, w in zip(_flat(rows), _flat(one)):
             assert torch.equal(g[p * R : (p + 1) * R], w)
+
+
+def _bw6_table(g2: bool, rows: int, B: int):
+    """BW6-761 G1 (b3 = -3) or G2 (b3 = 12) ops and a K1 table of R rows of
+    B distinct points (Fp at n = 48 for both groups)."""
+    from zkmember_tpu_torch.curves import bw6_761 as bw6
+
+    curve, gen = (bw6.G2, bw6.G2_GEN) if g2 else (bw6.G1, bw6.G1_GEN)
+    rng = random.Random(9 + g2)
+    step = curve.mul(rng.randrange(1, bw6.R), gen)
+    P = curve.mul(rng.randrange(1, bw6.R), gen)
+    pts = []
+    for _ in range(B):
+        pts.append(P)
+        P = curve.add(P, step)
+
+    def dev(vals):
+        return torch.as_tensor(fs.to_lm(fs.BW6_FQ.to_mont_host(vals)).astype(np.int64),
+                               dtype=torch.int32, device="cuda")
+
+    X, Y = dev([p[0].v for p in pts]), dev([p[1].v for p in pts])
+    ops = prove_lm.sw_ops(groth16.pairing_config("bw6_761"), g2, "cuda")
+    assert ops.b3 == (12 if g2 else -3)
+    tabs = [straus.table_program(ops, torch.roll(X, 7 * r, -1), torch.roll(Y, 7 * r, -1))
+            for r in range(rows)]
+    return ops, torch.cat(tabs, 1).contiguous()
+
+
+@pytest.mark.parametrize("P", [1, 4])
+@pytest.mark.parametrize("g2", [False, True], ids=["g1", "g2"])
+def test_select_reduce_kernel_bw6_matches_plain(g2, P):
+    """K1 at n = 48 (BW6-761), the proof's 95 windows, digits (W, P, R, B):
+    one launch equals the plain version limb for limb."""
+    _need_card()
+    W, rows, B = 95, 2, 1024
+    ops, tab = _bw6_table(g2, rows, B)
+    digits = torch.randint(0, 16, (W, P, rows, B), dtype=torch.int32, device="cuda")
+    before = kernels.LAUNCHES["select_reduce_fp48"]
+    got = k1.select_reduce(ops, tab, digits)
+    assert kernels.LAUNCHES["select_reduce_fp48"] == before + 1
+    want = k1.select_reduce_plain(ops, tab, digits)
+    for g, w in zip(_flat(got), _flat(want)):
+        assert g.shape == (W, P, rows, 48, B // 16)
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("P", [1, 4])
+@pytest.mark.parametrize("g2", [False, True], ids=["g1", "g2"])
+def test_msm_finish_kernel_bw6_matches_plain(g2, P):
+    """The finish at n = 48 over 95 windows (odd, not a power of two) and P R
+    rows, NT = 512 (contiguous halvings, then even/odd rounds)."""
+    _need_card()
+    spec = fs.BW6_FQ
+    W, R, NT = 95, 1 if g2 else 4, 512
+    ops = prove_lm.sw_ops(groth16.pairing_config("bw6_761"), g2, "cuda")
+    S = tuple(_planes(spec, (W * P * R, spec.n, NT), 60 + i).reshape(W, P * R, spec.n, NT)
+              for i in range(3))
+    want = finish_cuda.msm_finish_plain(ops, S)
+    before = kernels.LAUNCHES["msm_finish_fp48"]
+    got = finish_cuda.msm_finish_cuda(ops, S)
+    assert kernels.LAUNCHES["msm_finish_fp48"] == before + 2
+    for g, w in zip(got, want):
+        assert g.shape == (P * R, spec.n, 1)
+        assert torch.equal(g, w)
+
+
+def test_kernel_wrappers_raise_on_an_unsupported_n():
+    """K1 and the finish over a field of n = 16 limbs (BLS12-381 Fr) on CUDA
+    tensors: ValueError, nothing launched, no plain fallback."""
+    _need_card()
+    from zkmember_tpu_torch.curves import device as cdv
+    from zkmember_tpu_torch.fields import lm
+
+    ops = cdv.SWOps(lm.FpOpsLM(fs.BLS_FR, "cuda"), 3, "bls12_381_fr/lm")
+    before = dict(kernels.LAUNCHES)
+    records = torch.zeros((16, 1, 512, 24), dtype=torch.int32, device="cuda")
+    with pytest.raises(ValueError, match="n = 16"):
+        k1.select_reduce(ops, records, torch.zeros((4, 1, 1, 512), dtype=torch.int32,
+                                                   device="cuda"))
+    planes = tuple(torch.zeros((4, 1, 16, 8), dtype=torch.int32, device="cuda") for _ in range(3))
+    with pytest.raises(ValueError, match="n = 16"):
+        finish_cuda.msm_finish(ops, planes)
+    assert kernels.LAUNCHES == before

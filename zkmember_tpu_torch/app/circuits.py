@@ -4,6 +4,8 @@ The framework analog of the reference's `src/commitments/` layer:
   * `Pedersen381Config` — Jubjub Pedersen hashes over BLS12-381 Fr, windows
     4x128 (two-to-one) and 4x144 (leaf)
     (src/commitments/pedersen381/common.rs:17-57)
+  * `Pedersen761Config` — ed-on-bw6 Pedersen hashes over BW6-761 Fr, windows
+    4x192 for both (src/commitments/pedersen761/common.rs:17-47)
   * `MerkleTreeCircuit` — constants: both CRH parameter tables; public
     inputs: root, leaf digest; private witness: the authentication path
     (src/commitments/pedersen381/constraint.rs:24-72)
@@ -58,14 +60,27 @@ def _config_381() -> StackConfig:
     )
 
 
+def _config_761() -> StackConfig:
+    from zkmember_tpu_torch.curves import bw6_761, ed377
+
+    return StackConfig(
+        "pedersen761",
+        ed377.CURVE,
+        bw6_761.Fr,
+        ph.WINDOW_761,
+        ph.WINDOW_761,
+    )
+
+
 _CONFIGS = {}
+_BUILDERS = {"pedersen381": _config_381, "pedersen761": _config_761}
 
 
 def get_config(name: str) -> StackConfig:
-    if name != "pedersen381":
-        raise ValueError(f"unsupported stack config {name!r} (the port has pedersen381)")
+    if name not in _BUILDERS:
+        raise ValueError(f"unsupported stack config {name!r} (pedersen381 or pedersen761)")
     if name not in _CONFIGS:
-        _CONFIGS[name] = _config_381()
+        _CONFIGS[name] = _BUILDERS[name]()
     return _CONFIGS[name]
 
 

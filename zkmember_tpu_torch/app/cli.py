@@ -3,8 +3,10 @@
 register -> rebuild the tree and print the hex root; prove -> Groth16
 setup, the v1 prove and verify, printing hex leaf, root, proof and vk;
 verify -> parse hex root, leaf, proof and vk and run the pairing check.
-The same commands and output as the reference's CLI, plus ``--device``
-(default ``cuda``): ``prove`` runs setup and the prover there.  The
+The same commands and output as the reference's CLI, for both stacks
+(``--stack pedersen381``, BLS12-381, the default; ``--stack pedersen761``,
+BW6-761), plus ``--device`` (default ``cuda``): ``prove`` runs setup and
+the prover there.  The
 members live in a JSON state file (``ZKMEMBER_STATE``, default
 ``zkmember_state.json``).
 
@@ -32,7 +34,7 @@ from zkmember_tpu_torch.utils import rng as frng
 from zkmember_tpu_torch.utils import serialize as ser
 
 BLUE, GREEN, GRAY, RED, RESET = "\x1b[0;34m", "\x1b[0;32m", "\x1b[0;90m", "\x1b[0;31m", "\x1b[0m"
-CURVES = {"pedersen381": "bls12_381"}
+CURVES = {"pedersen381": "bls12_381", "pedersen761": "bw6_761"}
 
 
 def _state_file() -> str:
@@ -145,7 +147,7 @@ def cmd_interactive(args):
 
 def main(argv=None):
     ap = argparse.ArgumentParser(prog="zkmember")
-    ap.add_argument("--stack", default="pedersen381", choices=["pedersen381", "pedersen761"])
+    ap.add_argument("--stack", default="pedersen381", choices=sorted(CURVES))
     ap.add_argument("--device", default="cuda",
                     help="where setup and the prover run (default cuda; cpu runs the "
                          "kernels' plain versions)")
@@ -161,10 +163,6 @@ def main(argv=None):
         p.add_argument(f"--{f}", required=True)
     sub.add_parser("interactive")
     args = ap.parse_args(argv)
-    if args.stack not in CURVES:
-        print(f"--stack {args.stack} is not ported yet: the PyTorch port has "
-              "pedersen381 only (use zkmember_tpu.app.cli)", file=sys.stderr)
-        return 2
     return {
         "register": cmd_register,
         "root": cmd_root,

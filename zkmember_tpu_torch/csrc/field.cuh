@@ -267,4 +267,20 @@ struct Fp2Field {
   }
 };
 
+// A field type's launch constants from host data: p's N words, np0 and
+// b3 = b3c0 (+ b3c1 u for Fp2), signed.
+template <class F>
+typename F::Consts make_consts(const uint32_t* p_words, uint32_t np0, int b3c0, int b3c1) {
+  typename F::Consts c;
+  for (int i = 0; i < F::kN; ++i) c.m.p[i] = p_words[i];
+  c.m.np0 = np0;
+  if constexpr (F::kComponents == 2) {
+    c.b3c0 = b3c0;
+    c.b3c1 = b3c1;
+  } else {
+    c.b3 = b3c0;
+  }
+  return c;
+}
+
 }  // namespace zk

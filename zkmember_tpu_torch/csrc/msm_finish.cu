@@ -29,10 +29,17 @@
 // The additions are in the plain version's order, so the kernel and
 // finish_cuda.msm_finish_plain agree limb for limb.
 //
+// Variants: Fp at n = 24 (BLS12-381 G1) and n = 48 (BW6-761 G1 and G2), Fp2
+// at n = 24 (BLS12-381 G2).  Fp at n = 48 has the 24-word elements of Fp2
+// at n = 24, so the tail block's shared memory is the same (128 threads x
+// 12 slots x 96 B = 147 KB); the join runs its six products a wave on six
+// lanes, each a 24-word CIOS product, about four times a 12-word one.
+//
 // Bound: operations, W R (NT - 1) + 5 W R complete additions of 12
 // products (36 base products for Fp2).  The join is a chain of 5 W
 // dependent additions a row, so its time is latency: 320 additions of
-// 7,056 IMADs (Fp) or 21,168 (Fp2) at W = 64.
+// 7,056 IMADs (Fp) or 21,168 (Fp2) at W = 64; 475 of 27,936 (Fp at
+// n = 48) at BW6-761's W = 95.
 #include <cuda_runtime.h>
 
 #include "point.cuh"
@@ -170,28 +177,22 @@ int launch(const FinishPlanes<F>& pl, int W, int R, long long NT, int tail,
 // in: 6 device pointers to (W, R, n16, NT) int32 planes (x0, x1, y0, y1,
 // z0, z1; the c1 entries unused for fp2 = 0); scratch: 6 pointers to
 // (W, R, n16, NT / 2) planes, used only when NT > tail; sums: 6 pointers to
-// (W, R, n16, 1) planes; out: 6 pointers to (R, n16, 1) planes.  p_words,
-// one_words: host arrays of n16/2 words of p and of R mod p; np0 =
-// -p^-1 mod 2^32; b3 = b3c0 (+ b3c1 u for fp2).  Two launches on `stream`;
+// (W, R, n16, 1) planes; out: 6 pointers to (R, n16, 1) planes.  Variants
+// as K1's: Fp and Fp2 at n16 = 24, Fp at n16 = 48.  p_words, one_words:
+// host arrays of n16/2 words of p and of R mod p; np0 = -p^-1 mod 2^32;
+// b3 = b3c0 (+ b3c1 u for fp2), signed.  Two launches on `stream`;
 // returns cudaGetLastError() after them, or -1 for an unsupported shape.
 extern "C" int zk_msm_finish(int n16, int fp2, const void* const* in, void* const* scratch,
                              void* const* sums, void* const* out, int W, int R, long long NT,
                              int tail, const uint32_t* p_words, uint32_t np0,
                              const uint32_t* one_words, int b3c0, int b3c1, void* stream) {
   const bool pow2 = NT > 0 && (NT & (NT - 1)) == 0;
-  if (n16 != 24 || !pow2 || tail < 2 || tail > kMaxTail || (tail & (tail - 1)) != 0 ||
-      W < 1 || R < 1)
+  const bool variant = n16 == 24 || (n16 == 48 && !fp2);
+  if (!variant || !pow2 || tail < 2 || tail > kMaxTail || (tail & (tail - 1)) != 0 || W < 1 ||
+      R < 1)
     return -1;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  constexpr int N = 12;
-  zk::Mod<N> m;
-  zk::Fe<N> one;
-  for (int i = 0; i < N; ++i) {
-    m.p[i] = p_words[i];
-    one.w[i] = one_words[i];
-  }
-  m.np0 = np0;
-  auto run = [&](auto field, auto consts) {
+  auto run = [&](auto field) {
     using F = decltype(field);
     FinishPlanes<F> pl;
     for (int i = 0; i < 6; ++i) {
@@ -200,8 +201,10 @@ extern "C" int zk_msm_finish(int n16, int fp2, const void* const* in, void* cons
       pl.sums[i] = static_cast<int32_t*>(sums[i]);
       pl.out[i] = static_cast<int32_t*>(out[i]);
     }
-    return launch<F>(pl, W, R, NT, tail, one, consts, s);
+    zk::Fe<F::kN> one;
+    for (int i = 0; i < F::kN; ++i) one.w[i] = one_words[i];
+    return launch<F>(pl, W, R, NT, tail, one, zk::make_consts<F>(p_words, np0, b3c0, b3c1), s);
   };
-  if (fp2) return run(zk::Fp2Field<N>{}, typename zk::Fp2Field<N>::Consts{m, b3c0, b3c1});
-  return run(zk::FpField<N>{}, typename zk::FpField<N>::Consts{m, b3c0});
+  if (n16 == 48) return run(zk::FpField<24>{});
+  return fp2 ? run(zk::Fp2Field<12>{}) : run(zk::FpField<12>{});
 }

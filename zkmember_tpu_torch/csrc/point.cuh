@@ -144,9 +144,11 @@ template <class F, class QV>
 __device__ __forceinline__ void thread_add(const Slots<F>& R, const Slots<F>& P, const QV& Q,
                                            const Slots<F>& T, const typename F::Consts& c) {
   using E = typename F::E;
-  // Fp products go two at a time, so the two carry chains overlap; an Fp2
-  // product already holds three independent base products.
-  constexpr int kStep = F::kComponents == 1 ? 2 : 1;
+  // Products of 12-word elements (Fp at n = 24) go two at a time, so the
+  // two carry chains overlap; an Fp2 product already holds three
+  // independent base products, and a 24-word Fp product (n = 48) is long
+  // enough alone and would not fit twice in a thread's registers.
+  constexpr int kStep = Slots<F>::kWords <= 12 ? 2 : 1;
   E a, b, r;
   // T0..T2 = X1X2, Y1Y2, Z1Z2; T3 = X1Y2 + X2Y1, T4 = Y1Z2 + Y2Z1,
   // T5 = b3 (X1Z2 + X2Z1)

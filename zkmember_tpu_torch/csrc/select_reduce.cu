@@ -32,7 +32,8 @@
 // L = 2); per-thread sums keep every lane busy for L - 1 additions.  The
 // running sum and the addition's temporaries live in shared memory
 // (point.cuh), so nothing spills; shared memory (9 or 12 slots a thread,
-// see kQSlots) sets the occupancy.
+// see kQSlots) sets the occupancy: 4 blocks an SM for 24-word elements
+// (Fp2, and Fp at n = 48), 3 for 12-word ones.
 // The lanes of a warp select different entries, so a warp's loads scatter
 // over 16 entries: with one record per lane each thread reads its entry
 // in 16-byte loads, where limb planes would cost a 32-byte sector for
@@ -42,8 +43,10 @@
 //
 // Bound: operations.  Each output lane costs L - 1 complete additions
 // (12 field products, 36 base products for Fp2) against one table record
-// read per lane (144 B for Fp at n = 24, 288 B for Fp2); the table (151 MB
-// for the 16-member G1 key) exceeds the 50 MB L2, hence the proofs' order.
+// read per lane (144 B for Fp at n = 24, 288 B for Fp2 and for Fp at
+// n = 48); the table (151 MB for the 16-member BLS12-381 G1 key, 604 MB
+// for BW6-761's) exceeds the 50 MB L2, hence the proofs' order.  A 24-word
+// CIOS product costs about four times a 12-word one.
 #include <cuda_runtime.h>
 
 #include "point.cuh"
@@ -56,19 +59,22 @@ struct Planes {
   int32_t* out[6];
 };
 
-// Where the selected entry Q of an addition is read from.  Fp2: straight
-// from its record in global memory as the addition needs it; the three
-// slots this saves give an SM a fourth block (5.6 ms to 3.9 ms at the
-// proof's G2 shape).  Fp: copied into three shared slots, which measured
-// about 4 % faster than the record reads at the proof's G1 shape (4.80
-// against 5.02 ms; an Fp product is short, so the reads' latency shows).
-// Both on an H100 80GB HBM3 at a 700 W power limit.
+// The block's shape follows the words of an element, not the field's
+// kind: Fp at n = 24 has 12-word elements, Fp2 at n = 24 and Fp at n = 48
+// (BW6-761) 24-word ones, so the latter two share one design.
+// Where the selected entry Q of an addition is read from.  24 words:
+// straight from its record in global memory as the addition needs it; the
+// three slots this saves give an SM a fourth block (Fp2: 5.6 ms to 3.9 ms
+// at the proof's G2 shape).  12 words: copied into three shared slots,
+// which measured about 4 % faster than the record reads at the proof's G1
+// shape (4.80 against 5.02 ms; a 12-word product is short, so the reads'
+// latency shows).  Both on an H100 80GB HBM3 at a 700 W power limit.
 template <class F>
-constexpr bool kQSlots = F::kComponents == 1;
+constexpr bool kQSlots = zk::Slots<F>::kWords <= 12;
 template <class F>
 constexpr int kSlots = kQSlots<F> ? 12 : 9;  // P, [Q,] six temporaries
 template <class F>
-constexpr int kThreads = (F::kComponents == 1 ? 4 : 2) * kWarp;
+constexpr int kThreads = (kQSlots<F> ? 4 : 2) * kWarp;
 template <class F>
 constexpr int kSmemBytes = kThreads<F> * kSlots<F> * zk::Slots<F>::kWords * 4;
 template <class F>
@@ -137,27 +143,26 @@ int launch(const void* tab, const void* digits, void* const* out, int W, int P, 
 // tab: (16, R, B, 3 C n16/2) words (C = 2 for fp2, else 1), 16-byte
 // aligned; digits: (W, P, R, B) int32; out: 6 device pointers (x0, x1,
 // y0, y1, z0, z1; the c1 entries unused for fp2 = 0) to (W, P, R, n16,
-// B / L) int32 planes; R at most 65,535 (the grid's y).
+// B / L) int32 planes; R at most 65,535 (the grid's y).  Variants: Fp and
+// Fp2 at n16 = 24 (BLS12-381), Fp at n16 = 48 (BW6-761 G1 and G2).
 // p_words: host array of n16/2 words; np0 = -p^-1 mod 2^32; b3 = b3c0
-// (+ b3c1 u for fp2).  Returns cudaGetLastError() after the launch, or
-// -1 for an unsupported shape.
+// (+ b3c1 u for fp2), signed.  Returns cudaGetLastError() after the
+// launch, or -1 for an unsupported shape.
 extern "C" int zk_select_reduce(int n16, int fp2, const void* tab, const void* digits,
                                 void* const* out, int W, int P, int R, long long B, int L,
                                 const uint32_t* p_words, uint32_t np0, int b3c0, int b3c1,
                                 void* stream) {
-  if (n16 != 24 || L < 1 || B % (static_cast<long long>(kWarp) * L) != 0 || R > 65535 ||
+  const bool variant = n16 == 24 || (n16 == 48 && !fp2);
+  if (!variant || L < 1 || B % (static_cast<long long>(kWarp) * L) != 0 || R > 65535 ||
       W < 0 || P < 0 || R < 0)
     return -1;
   if (W == 0 || P == 0 || R == 0 || B == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  constexpr int N = 12;
-  zk::Mod<N> m;
-  for (int i = 0; i < N; ++i) m.p[i] = p_words[i];
-  m.np0 = np0;
-  if (fp2) {
-    typename zk::Fp2Field<N>::Consts c{m, b3c0, b3c1};
-    return launch<zk::Fp2Field<N>>(tab, digits, out, W, P, R, B, L, c, s);
-  }
-  typename zk::FpField<N>::Consts c{m, b3c0};
-  return launch<zk::FpField<N>>(tab, digits, out, W, P, R, B, L, c, s);
+  auto run = [&](auto field) {
+    using F = decltype(field);
+    return launch<F>(tab, digits, out, W, P, R, B, L,
+                     zk::make_consts<F>(p_words, np0, b3c0, b3c1), s);
+  };
+  if (n16 == 48) return run(zk::FpField<24>{});
+  return fp2 ? run(zk::Fp2Field<12>{}) : run(zk::FpField<12>{});
 }

@@ -127,17 +127,38 @@ class TECurve:
         return self.add(P, P)
 
     def mul(self, k: int, P):
+        """k P by double-and-add in projective coordinates (X : Y : Z) over
+        plain ints, one inversion at the end: the unified law
+        (add-2008-bbjlp) is complete for a square a and a non-square d, and
+        the affine result is the one the affine law gives."""
         if k == 0:
             return self.identity()
         if k < 0:
             return self.mul(-k, self.neg(P))
-        R = self.identity()
+        p = self.field.p
+        a, d = self.a.v, self.d.v
+
+        def add(P1, P2):
+            X1, Y1, Z1 = P1
+            X2, Y2, Z2 = P2
+            A = Z1 * Z2 % p
+            B = A * A % p
+            C = X1 * X2 % p
+            D = Y1 * Y2 % p
+            E = d * C % p * D % p
+            F, G = (B - E) % p, (B + E) % p
+            X3 = A * F % p * (((X1 + Y1) * (X2 + Y2) - C - D) % p) % p
+            Y3 = A * G % p * ((D - a * C) % p) % p
+            return X3, Y3, F * G % p
+
+        R, Q = (0, 1, 1), (P[0].v, P[1].v, 1)
         while k:
             if k & 1:
-                R = self.add(R, P)
-            P = self.add(P, P)
+                R = add(R, Q)
+            Q = add(Q, Q)
             k >>= 1
-        return R
+        zi = pow(R[2], -1, p)
+        return (self.field(R[0] * zi % p), self.field(R[1] * zi % p))
 
     def lift_y(self, y, x_sign: int | None = None):
         """Point with given y-coordinate (a x^2 = (1 - y^2)/(... )), or None."""

@@ -94,6 +94,10 @@ def mul_cols(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     which is what costs at the Horner join's single lanes).  Large
     operands take n row passes instead, which keep memory at the output's
     size."""
+    if _is_column(a):
+        a, b = b, a
+    if _is_column(b):
+        return _mul_column(a, b)
     n, m = a.shape[-2], b.shape[-2]
     shape = torch.broadcast_shapes(a.shape[:-2], b.shape[:-2])
     B = max(a.shape[-1], b.shape[-1])
@@ -107,6 +111,24 @@ def mul_cols(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     for i in range(n):
         cols[..., i : i + m, :] += a[..., i : i + 1, :] * b
     return cols
+
+
+def _is_column(x: torch.Tensor) -> bool:
+    """x is one (m, 1) limb column, broadcast over every plane and lane."""
+    return x.shape[-1] == 1 and math.prod(x.shape[:-2]) == 1
+
+
+def _mul_column(a: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """mul_cols of (..., n, B) planes by one (m, 1) column (a constant such
+    as p or N'): one float64 product with c's (n + m - 1, n) Toeplitz
+    matrix.  Exact: each term is below 2^32 and a column sums at most
+    min(n, m) of them, far below 2^53."""
+    n, m = a.shape[-2], c.shape[-2]
+    k = _arange_col(n + m - 1, a.device) - _arange_col(n, a.device).view(1, n)
+    col = c.reshape(m).to(torch.float64)
+    toep = torch.where((k >= 0) & (k < m), col[k.clamp(0, m - 1)], 0.0)
+    cols = a.to(torch.float64).transpose(-1, -2) @ toep.T  # (..., B, n + m - 1)
+    return cols.transpose(-1, -2).to(torch.int64)
 
 
 def sub_limbs(a: torch.Tensor, b: torch.Tensor):

@@ -38,7 +38,8 @@ ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 FLAGS = ARCH + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 LAUNCHES = {"mont_mul": 0, "select_reduce_fp": 0, "select_reduce_fp2": 0, "mont_mul_bm": 0,
-            "msm_finish_fp": 0, "msm_finish_fp2": 0}
+            "msm_finish_fp": 0, "msm_finish_fp2": 0, "select_reduce_fp48": 0,
+            "msm_finish_fp48": 0}
 
 _lock = threading.Lock()
 _lib = None

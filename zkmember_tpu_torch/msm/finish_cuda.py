@@ -11,7 +11,8 @@ composition launches a few hundred kernels per complete addition.
 
 ``msm_finish(ops, S)`` takes K1's window sums, coordinates of
 ``(W, [R,] n, NT)`` int32 planes (most significant window first, NT a power
-of two), and returns the MSM as projective coordinates ``([R,] n, 1)``.  A
+of two), and returns the MSM as projective coordinates ``([R,] n, 1)``.
+The kernel has the variants of K1: Fp at n = 24 and 48, Fp2 at n = 24.  A
 CUDA tensor goes to the kernel; a CPU tensor takes ``msm_finish_plain``,
 ``horner_join(tree_reduce_lanes(S))``, which adds in the kernel's order,
 so the two agree limb for limb.
@@ -26,8 +27,6 @@ import torch
 
 from zkmember_tpu_torch import kernels
 from zkmember_tpu_torch.msm import select_reduce_cuda
-
-N_LIMBS = 24  # the kernel is built for BLS12-381 Fq (and Fq2 with u^2 = -1)
 
 
 def msm_finish_plain(ops, S):
@@ -46,6 +45,7 @@ def msm_finish_cuda(ops, S):
     from zkmember_tpu_torch.msm import straus
 
     fp2, spec, b3 = select_reduce_cuda.kernel_consts(ops)
+    name = select_reduce_cuda.variant("msm_finish", fp2, spec.n)
     planes = _planes(S)
     if len(planes) != (6 if fp2 else 3):
         raise ValueError("window sums must hold 3 coordinates (pairs for Fp2)")
@@ -56,8 +56,8 @@ def msm_finish_cuda(ops, S):
     if len(shape) != 4:
         raise ValueError(f"window sums must be (W, [R,] n, NT) planes, got {tuple(planes[0].shape)}")
     W, R, n, NT = shape
-    if spec.n != N_LIMBS or n != N_LIMBS:
-        raise ValueError(f"the finish kernel needs n = {N_LIMBS} limbs, got {n} (field {spec.n})")
+    if n != spec.n:
+        raise ValueError(f"window sums of n = {n} limbs for a field of n = {spec.n}")
     if NT < 1 or NT & (NT - 1):
         raise ValueError(f"the lane count NT must be a power of two, got {NT}")
     if W < 1 or R < 1:
@@ -86,7 +86,6 @@ def msm_finish_cuda(ops, S):
         kernels.library().zk_msm_finish, dev, n, int(fp2), ptrs(planes), ptrs(scratch),
         ptrs(sums), ptrs(outs), W, R, NT, tail, p_words, np0,
         one_words.ctypes.data_as(ctypes.POINTER(ctypes.c_uint32)), int(b3[0]), int(b3[1]))
-    name = "msm_finish_fp2" if fp2 else "msm_finish_fp"
     kernels.check(rc, name)
     kernels.LAUNCHES[name] += 2
     if squeeze:

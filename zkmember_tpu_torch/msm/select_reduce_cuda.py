@@ -90,6 +90,12 @@ def select_reduce_plain(ops, records, digits):
                  for x in acc)
 
 
+# The kernels' variants: (limbs n, Fp2) -> the suffix of their launch counts.
+# Fp at n = 24 (BLS12-381 G1) and n = 48 (BW6-761 G1 and G2), Fp2 at n = 24
+# (BLS12-381 G2, u^2 = -1).
+VARIANTS = {(24, False): "fp", (48, False): "fp48", (24, True): "fp2"}
+
+
 def kernel_consts(ops):
     """(fp2, base field spec, (b3c0, b3c1)) of a curve's ops for the kernels."""
     fp2 = isinstance(ops.b3, tuple)
@@ -98,6 +104,16 @@ def kernel_consts(ops):
         raise ValueError("the Fp2 kernel assumes u^2 = -1 (BLS12-381 G2)")
     b3 = ops.b3 if fp2 else (ops.b3, 0)
     return fp2, spec, b3
+
+
+def variant(kernel: str, fp2: bool, n: int) -> str:
+    """The launch-count name of `kernel` for a field of n limbs, or a
+    ValueError for a variant that is not built."""
+    suffix = VARIANTS.get((n, fp2))
+    if suffix is None:
+        raise ValueError(f"{kernel} is built for n = 24 (Fp, Fp2) and n = 48 (Fp), "
+                         f"not {'Fp2' if fp2 else 'Fp'} at n = {n}")
+    return f"{kernel}_{suffix}"
 
 
 def pack_records(tab):
@@ -124,6 +140,7 @@ def select_reduce_cuda(ops, records, digits):
     """Launch the CUDA kernel (one launch for all windows, proofs and rows)."""
     fp2, spec, b3 = kernel_consts(ops)
     n, C = spec.n, 6 if fp2 else 3
+    name = variant("select_reduce", fp2, n)
     shape = tuple(records.shape)
     if len(shape) != 4 or shape[0] != 16 or shape[3] != C * n // 2:
         raise ValueError(f"records must be (16, R, B, {C * n // 2}), got {shape}")
@@ -146,7 +163,6 @@ def select_reduce_cuda(ops, records, digits):
     rc = kernels.launch(kernels.library().zk_select_reduce, dev, n, int(fp2),
                         records.data_ptr(), digits.data_ptr(), out_ptrs, W, P, R, B, L, p_words,
                         np0, int(b3[0]), int(b3[1]))
-    name = "select_reduce_fp2" if fp2 else "select_reduce_fp"
     kernels.check(rc, name)
     kernels.LAUNCHES[name] += 1
     return _rebuild(outs, fp2)

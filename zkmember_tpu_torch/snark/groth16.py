@@ -10,8 +10,8 @@ Counterpart of zkmember_tpu.snark.groth16 (ark-groth16 semantics):
 
 Keys also come from a checkpoint (``utils.checkpoint``) or from numpy
 planes (``snark.prove_lm.keys_from_numpy``); the limb-major prover
-``snark.prove_lm`` takes the same ``ProvingKey``.  Only BLS12-381 is
-ported.
+``snark.prove_lm`` takes the same ``ProvingKey``.  Both pairing stacks
+are ported: BLS12-381 (G2 over Fq2) and BW6-761 (G2 over Fq).
 
 R1CS -> QAP uses the libsnark/ark construction: the evaluation domain is
 sized to num_constraints + num_instance and each instance variable i gets
@@ -37,13 +37,17 @@ from zkmember_tpu_torch.utils import rng as frng
 
 
 class PairingConfig:
-    """What Groth16 needs to know about a pairing-friendly curve (host side)."""
+    """What Groth16 needs to know about a pairing-friendly curve (host side).
 
-    def __init__(self, name, fr_spec, fq_spec, fq2_spec, mod):
+    g2_spec is the field of G2's coordinates: an ``Fp2Spec`` (BLS12-381) or
+    the base field itself (BW6-761, whose twist is defined over Fq)."""
+
+    def __init__(self, name, fr_spec, fq_spec, g2_spec, mod):
         self.name = name
         self.fr_spec = fr_spec  # scalar field
         self.fq_spec = fq_spec  # G1 coordinates
-        self.fq2_spec = fq2_spec  # G2 coordinates
+        self.g2_spec = g2_spec  # G2 coordinates
+        self.g2_fp2 = isinstance(g2_spec, fs.Fp2Spec)
         self.mod = mod  # host curve module (G1, G2, multi_pairing, ...)
         self.r = mod.R
 
@@ -51,26 +55,43 @@ class PairingConfig:
         """Batch-major field ops of G1's coordinates on `device`."""
         return dv.FpOps(self.fq_spec, device)
 
-    def F2(self, device) -> dv.Fp2Ops:
-        return dv.Fp2Ops(self.fq2_spec, device)
+    def F2(self, device) -> dv.FpOps | dv.Fp2Ops:
+        if self.g2_fp2:
+            return dv.Fp2Ops(self.g2_spec, device)
+        return dv.FpOps(self.g2_spec, device)
 
     def g1_from_host(self, pts, device) -> msmmod.PointArray:
         return msmmod.g1_points_from_host(self.fq_spec, self.mod.G1, pts, device)
 
     def g2_from_host(self, pts, device) -> msmmod.PointArray:
-        return msmmod.g2_points_from_host(self.fq2_spec, self.mod.G2, pts, device)
+        if self.g2_fp2:
+            return msmmod.g2_points_from_host(self.g2_spec, self.mod.G2, pts, device)
+        return msmmod.g1_points_from_host(self.g2_spec, self.mod.G2, pts, device)
 
 
 _CONFIGS: dict = {}
 
 
-def pairing_config(name: str) -> PairingConfig:
-    if name != "bls12_381":
-        raise ValueError(f"unsupported curve {name!r} (the port has bls12_381)")
-    if name not in _CONFIGS:
-        from zkmember_tpu_torch.curves import bls12_381 as mod
+def _bls_config() -> PairingConfig:
+    from zkmember_tpu_torch.curves import bls12_381 as mod
 
-        _CONFIGS[name] = PairingConfig(name, fs.BLS_FR, fs.BLS_FQ, fs.BLS_FQ2, mod)
+    return PairingConfig("bls12_381", fs.BLS_FR, fs.BLS_FQ, fs.BLS_FQ2, mod)
+
+
+def _bw6_config() -> PairingConfig:
+    from zkmember_tpu_torch.curves import bw6_761 as mod
+
+    return PairingConfig("bw6_761", fs.BW6_FR, fs.BW6_FQ, fs.BW6_FQ, mod)
+
+
+_BUILDERS = {"bls12_381": _bls_config, "bw6_761": _bw6_config}
+
+
+def pairing_config(name: str) -> PairingConfig:
+    if name not in _BUILDERS:
+        raise ValueError(f"unsupported curve {name!r} (bls12_381 or bw6_761)")
+    if name not in _CONFIGS:
+        _CONFIGS[name] = _BUILDERS[name]()
     return _CONFIGS[name]
 
 
@@ -327,7 +348,7 @@ def _fixed_base_mul_g1(cfg, F, scalars):
 def _host_planes(cfg, pts, g2: bool) -> PointPlanes:
     """Host affine points -> host uint32 Montgomery planes."""
     spec = cfg.fq_spec
-    if g2:
+    if g2 and cfg.g2_fp2:
         comp = lambda i, j: spec.to_mont_host([p[i].coeffs[j].v for p in pts])  # noqa: E731
         return PointPlanes((comp(0, 0), comp(0, 1)), (comp(1, 0), comp(1, 1)))
     return PointPlanes(spec.to_mont_host([p[0].v for p in pts]),

@@ -43,9 +43,11 @@ def _next_pow2(x: int) -> int:
 
 
 def sw_ops(cfg: "groth16.PairingConfig", g2: bool, device) -> cdv.SWOps:
-    """Limb-major SWOps for a pairing config's G1 or G2, b3 = 3 b."""
+    """Limb-major SWOps for a pairing config's G1 or G2, b3 = 3 b (G2 over
+    Fq2 for BLS12-381, over the base field for BW6-761)."""
     if g2:
-        F, curve = lm.Fp2OpsLM(cfg.fq2_spec, device), cfg.mod.G2
+        F_ops = lm.Fp2OpsLM if cfg.g2_fp2 else lm.FpOpsLM
+        F, curve = F_ops(cfg.g2_spec, device), cfg.mod.G2
     else:
         F, curve = lm.FpOpsLM(cfg.fq_spec, device), cfg.mod.G1
     return cdv.SWOps(F, cdv.b3_of(curve), f"{cfg.name}_{'g2' if g2 else 'g1'}/lm")
@@ -151,6 +153,8 @@ def _g1_point(cfg, xy):
 
 
 def _g2_point(cfg, xy):
+    if not cfg.g2_fp2:
+        return _g1_point(cfg, xy)
     (x0, x1), (y0, y1) = xy
     return (cfg.mod.fq2(int(x0), int(x1)), cfg.mod.fq2(int(y0), int(y1)))
 
@@ -163,9 +167,10 @@ def keys_from_numpy(planes, *, curve: str, a_nonzero, b_nonzero, l_nonzero,
     planes: the checkpoint's (k, n) uint32 Montgomery query planes under its
     names: '<q>_x' / '<q>_y' for q in a_query, b_g1_query, h_query,
     l_query, and '<q>_x_c0', '<q>_x_c1', '<q>_y_c0', '<q>_y_c1' for
-    b_g2_query.  vk: alpha_g1 (x, y), beta_g2 / gamma_g2 / delta_g2
-    ((x0, x1), (y0, y1)) and gamma_abc_g1 [(x, y), ...] as ints; beta_g1
-    and delta_g1 as (x, y) ints."""
+    b_g2_query over Fq2 (BLS12-381; BW6-761's G2 has '<q>_x' / '<q>_y').
+    vk: alpha_g1 (x, y), beta_g2 / gamma_g2 / delta_g2 ((x0, x1), (y0, y1)),
+    or (x, y) over Fq, and gamma_abc_g1 [(x, y), ...] as ints; beta_g1 and
+    delta_g1 as (x, y) ints."""
     cfg = groth16.pairing_config(curve)
 
     def pp(name, fp2=False):
@@ -191,7 +196,7 @@ def keys_from_numpy(planes, *, curve: str, a_nonzero, b_nonzero, l_nonzero,
         delta_g1=_g1_point(cfg, delta_g1),
         a_query=pp("a_query"),
         b_g1_query=pp("b_g1_query"),
-        b_g2_query=pp("b_g2_query", fp2=True),
+        b_g2_query=pp("b_g2_query", fp2=cfg.g2_fp2),
         h_query=pp("h_query"),
         l_query=pp("l_query"),
         a_nonzero=[int(i) for i in a_nonzero],
