@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--seed S]
         [--phases device,build,k2,k1,prove,k3,setup,prove_v1,cli,prove_batch,harness,
-                  scale,bw6[,profile]]
+                  scale,bw6,marlin[,profile]]
 
 Phases (each raises on failure, so the script exits non-zero):
   device  the card's name and power limit (nvidia-smi)
@@ -81,14 +81,33 @@ Phases (each raises on failure, so the script exits non-zero):
           proof's shapes and at P = 4; the bench harness (--stack
           pedersen761, the saved key) and the CLI on 4 members in
           subprocesses
+  marlin  Marlin over KZG: the 16-member BLS12-381 registrar of `prove`
+          (|H| = 2^14, |K| = 2^15, SRS degree 196,608 in 13 table rows of
+          16,384 lanes): universal setup (K3), index (the SRS table on K2,
+          NTTs on K2, the matrix commitments on K1 and the finish), a first
+          proof, a timed one with the launch counts reset just before it
+          and read just after (K2 at every NTT stage, K1 and the finish
+          once per round and once for the openings, nothing else), a proof
+          with phases; it verifies, and a wrong root and another member's
+          leaf are rejected; another rng gives other w_hat and z_A
+          commitments; one more setup, index and proof hold the first call
+          of every kernel at each distinct shape against its plain version
+          (the SRS and commitments must come out the same, K2's shapes
+          must match marlin_k2_shapes); K1 and the finish timed at each
+          commit shape, K2 at each NTT shape, K3 at setup's wave; then the
+          pedersen761 registrar of MARLIN_BW6_MEMBERS members (K1 and the
+          finish at n = 48) set up, indexed, proved, verified, tampered
+          and checked; then the bench harness's --systems marlin and
+          --universal runs in subprocesses (rows parse, verify true)
   profile (optional, last) one more run of each prover path that ran
-          (prove, prove_batch at 8 proofs, scale, bw6, prove_v1) under
+          (prove, prove_batch at 8 proofs, scale, bw6, prove_v1, marlin) under
           torch.profiler: the kernels' device time, the device's idle
           share, the top kernels
 
 Progress goes to stderr.  stdout ends with a prove line, a setup/prove_v1
-line, a prove_batch/harness/scale line, a BW6-761 line, the card line
-(nvidia-smi), one JSON "kernels" line and, last, {"ok": true, "device": ...}.
+line, a prove_batch/harness/scale line, a BW6-761 line, a Marlin line, the
+card line (nvidia-smi), one JSON "kernels" line and, last, {"ok": true,
+"device": ...}.
 Imports nothing of JAX.  Needs one CUDA card; without one it exits 2.
 """
 
@@ -112,6 +131,9 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 # multiplies only, so they are lower bounds.
 HBM_BYTES_PER_S = 3.35e12
 IMAD_PER_S = 67e12 / 4
+# operands of a field-product timing that fit the 50 MB L2 are read from L2
+# on repeated calls: its "bytes" bound is then no lower bound (in_l2 marks it)
+L2_BYTES = 50 * 2**20
 HOLD_CYCLES = 5_000_000  # about 3 ms of spinning at the H100's clocks
 
 RESULTS: dict = {}
@@ -125,6 +147,7 @@ PROVE_KERNELS = ("mont_mul", "select_reduce_fp", "select_reduce_fp2", "msm_finis
 # the BW6-761 stack's: K1 and the finish at n = 48 (Fp, both groups); K2 as above
 BW6_KERNELS = ("select_reduce_fp48", "msm_finish_fp48")
 BW6_M = 1 << 15  # the domain of the 16-member BW6-761 circuit
+MARLIN_BW6_MEMBERS = 4  # the BW6-761 Marlin run's registrar
 ERRS: dict = {}  # kernel -> largest limb difference from its plain version
 CHECKS: dict = {}  # kernel -> the shapes at which it was held against it
 MSM_TIMES: list = []  # K1 and the finish timed at each path's shapes, one entry a group
@@ -490,7 +513,7 @@ def phase_prove(np_rng):
         f"{k} {v:.3f}s" for k, v in RESULTS["breakdown"].items()))
 
     _holds_and_tamper_fails(keys.cfg, keys.pk.vk, public, proof, "proof")
-    _, k2_shapes = checked_run(lambda: prove_lm.prove(keys, cs, rng=rng), "proof")
+    _, k2_shapes, *_ = checked_run(lambda: prove_lm.prove(keys, cs, rng=rng), "proof")
     if sum(k2_shapes.values()) != launches["mont_mul"]:
         raise AssertionError(f"the checked proof's K2 calls {k2_shapes} differ from the timed proof's")
     if k2_shapes != k2_proof_shapes(keys.M):
@@ -508,75 +531,90 @@ def time_msm_kernels(np_rng, keys, P: int, where: str, launches: dict) -> None:
     its plain version on the same inputs, then timed beside it.  Appends one
     entry per (kernel, group) to MSM_TIMES, with `path` (where) and the
     launches that fall to its group in that path's timed run (`launches`)."""
+    share = 1 if keys.cfg.g2_fp2 else 2  # groups that run one variant (BW6-761: both)
+    for group, tab, R, B in (("G1", keys.g1_tab, 4, keys.B1), ("G2", keys.g2_tab, 1, keys.B2)):
+        g2 = group == "G2"
+        time_k1_finish(np_rng, keys.ops2 if g2 else keys.ops1, tab, keys.nwin, P, R, B,
+                       where, group, launches, share)
+
+
+def time_k1_finish(np_rng, ops, tab, W: int, P: int, R: int, B: int, where: str, group: str,
+                   launches: dict, share: int = 1) -> None:
+    """K1 on random digits (W, P, R, B) against the table `tab` (its rows
+    gathered to R), and the finish on K1's output viewed as (W, P R, n, NT):
+    each held against its plain version on the same inputs, then timed
+    beside it; one MSM_TIMES entry each, with `launches[name] // share`
+    (the launches of that path's timed run that fall to this group)."""
     import torch
 
     from zkmember_tpu_torch.msm import finish_cuda as fin, select_reduce_cuda as k1, straus
 
-    spec = keys.cfg.fq_spec
+    fp2, spec, _ = k1.kernel_consts(ops)
+    n = spec.n
     imads_per_mul = _imads(spec)
-    W, n = keys.nwin, spec.n
-    share = 1 if keys.cfg.g2_fp2 else 2  # groups that run one variant (BW6-761: both)
-    for group, tab, R, B in (("G1", keys.g1_tab, 4, keys.B1), ("G2", keys.g2_tab, 1, keys.B2)):
-        g2 = group == "G2"
-        ops = keys.ops2 if g2 else keys.ops1
-        fp2 = g2 and keys.cfg.g2_fp2
-        dig = torch.as_tensor(np_rng.integers(0, 16, size=(W, P, R, B)), dtype=torch.int32,
-                              device="cuda")
-        name = k1.variant("select_reduce", fp2, n)
-        S = k1.select_reduce_cuda(ops, tab, dig)
-        err = _hold(name, f"{where} W={W} P={P} R={R} B={B}", S,
-                    select_reduce_plain_sliced(ops, tab, dig))
-        _, L = k1.tile_shape(B)
-        NT = B // L
-        nc = 2 if fp2 else 1
-        prods = 12 * (3 if fp2 else 1)  # base products of one complete addition
-        point_bytes = 3 * nc * n * 4
-        rows = P * R
-        MSM_TIMES.append({
-            "name": name, "group": group, "path": where, "launches": launches[name] // share,
-            "shape": [W, P, R, B], "max_abs_err": err,
-            "ms": cuda_ms(lambda: k1.select_reduce_cuda(ops, tab, dig)),
-            "plain_ms": cuda_ms(lambda: select_reduce_plain_sliced(ops, tab, dig), reps=1,
-                                rounds=1, warmup=False),
-            "bound": _bound(16 * R * B * point_bytes + W * rows * B * 4
-                            + W * rows * NT * point_bytes,
-                            W * rows * (B - NT) * prods * imads_per_mul),
-        })
-        # the finish on this K1 output, its P R rows as one axis: NT lanes a
-        # window, then the join
-        fname = k1.variant("msm_finish", fp2, n)
-        Sv = tuple(straus._map_coord(lambda c: c.reshape(W, rows, n, NT), x) for x in S)
-        err = _hold(fname, f"{where} W={W} rows={rows} NT={NT}", fin.msm_finish_cuda(ops, Sv),
-                    fin.msm_finish_plain(ops, Sv))
-        chain = 5 * W  # dependent additions of one row's join
-        MSM_TIMES.append({
-            "name": fname, "group": group, "path": where, "launches": launches[fname] // share,
-            "shape": [W, rows, NT], "max_abs_err": err,
-            "ms": cuda_ms(lambda: fin.msm_finish_cuda(ops, Sv)),
-            "plain_ms": cuda_ms(lambda: fin.msm_finish_plain(ops, Sv), reps=1, rounds=1,
-                                warmup=False),
-            "bound": _bound(W * rows * NT * point_bytes + rows * point_bytes,
-                            (W * rows * (NT - 1) + chain * rows) * prods * imads_per_mul),
-        })
-    for r in MSM_TIMES[-4:]:
+    if tab.shape[1] != R:
+        tab = tab[:, torch.arange(R, device=tab.device) % tab.shape[1]].contiguous()
+    dig = torch.as_tensor(np_rng.integers(0, 16, size=(W, P, R, B)), dtype=torch.int32,
+                          device="cuda")
+    name = k1.variant("select_reduce", fp2, n)
+    S = k1.select_reduce_cuda(ops, tab, dig)
+    err = _hold(name, f"{where} W={W} P={P} R={R} B={B}", S,
+                select_reduce_plain_sliced(ops, tab, dig))
+    _, L = k1.tile_shape(B)
+    NT = B // L
+    nc = 2 if fp2 else 1
+    prods = 12 * (3 if fp2 else 1)  # base products of one complete addition
+    point_bytes = 3 * nc * n * 4
+    rows = P * R
+    MSM_TIMES.append({
+        "name": name, "group": group, "path": where, "launches": launches[name] // share,
+        "shape": [W, P, R, B], "max_abs_err": err,
+        "ms": cuda_ms(lambda: k1.select_reduce_cuda(ops, tab, dig)),
+        "plain_ms": cuda_ms(lambda: select_reduce_plain_sliced(ops, tab, dig), reps=1,
+                            rounds=1, warmup=False),
+        "bound": _bound(16 * R * B * point_bytes + W * rows * B * 4
+                        + W * rows * NT * point_bytes,
+                        W * rows * (B - NT) * prods * imads_per_mul),
+    })
+    # the finish on this K1 output, its P R rows as one axis: NT lanes a
+    # window, then the join
+    fname = k1.variant("msm_finish", fp2, n)
+    Sv = tuple(straus._map_coord(lambda c: c.reshape(W, rows, n, NT), x) for x in S)
+    err = _hold(fname, f"{where} W={W} rows={rows} NT={NT}", fin.msm_finish_cuda(ops, Sv),
+                fin.msm_finish_plain(ops, Sv))
+    chain = 5 * W  # dependent additions of one row's join
+    MSM_TIMES.append({
+        "name": fname, "group": group, "path": where, "launches": launches[fname] // share,
+        "shape": [W, rows, NT], "max_abs_err": err,
+        "ms": cuda_ms(lambda: fin.msm_finish_cuda(ops, Sv)),
+        "plain_ms": cuda_ms(lambda: fin.msm_finish_plain(ops, Sv), reps=1, rounds=1,
+                            warmup=False),
+        "bound": _bound(W * rows * NT * point_bytes + rows * point_bytes,
+                        (W * rows * (NT - 1) + chain * rows) * prods * imads_per_mul),
+    })
+    for r in MSM_TIMES[-2:]:
         log(f"{r['name']} {r['group']} at {r['shape']} ({where}): kernel {r['ms']:.3f} ms, "
             f"plain {r['plain_ms']:.1f} ms, bound {r['bound'][0]:.4f} ms ({r['bound'][1]})")
 
 
 def checked_run(run, what: str):
-    """run() (proofs of prove_lm) with the first call of each kernel at every
-    distinct shape (operand shapes and field) held against its plain version
-    on the same inputs, limb for limb: the NTT shapes of K2, both K1 grids
-    and both finishes; no K2 operand may be copied.  Its launches are outside
-    any counted run.  Returns run()'s result and the K2 launches of the run
-    itself by (field, shape of a, shape of b)."""
-    from zkmember_tpu_torch.fields import lm_cuda
+    """run() (proofs of prove_lm or Marlin, a Marlin setup or index) with the
+    first call of each kernel at every distinct shape (operand shapes and
+    field) held against its plain version on the same inputs, limb for
+    limb: K2 and K3 at each operand shape, K1 at each digit grid and the
+    finish at each window-sum shape; no K2 operand may be copied.  Its
+    launches are outside any counted run.  Returns run()'s result and the
+    launches of the run itself: K2's by (field, shape of a, shape of b),
+    K1's by digit shape, K3's by (field, shape of a, shape of b)."""
+    from zkmember_tpu_torch.fields import field_cuda, lm_cuda
     from zkmember_tpu_torch.msm import finish_cuda as fin, select_reduce_cuda as k1
 
     mont_mul_cuda, select_reduce_cuda = lm_cuda.mont_mul_cuda, k1.select_reduce_cuda
-    msm_finish_cuda = fin.msm_finish_cuda
+    msm_finish_cuda, mont_mul_bm_cuda = fin.msm_finish_cuda, field_cuda.mont_mul_bm_cuda
     seen = set()
     counts: dict = {}  # (field, shape of a, shape of b) -> K2 launches of the run itself
+    k1_shapes: dict = {}  # digit shape -> K1 launches of the run itself
+    k3_counts: dict = {}  # (field, shape of a, shape of b) -> K3 launches of the run itself
     in_plain = [0]  # the plain K1 and finish run their products on K2 too: not counted
 
     def mont_mul_checked(spec, a, b):
@@ -593,6 +631,16 @@ def checked_run(run, what: str):
             counts[key] = counts.get(key, 0) + 1
         return out
 
+    def mont_mul_bm_checked(spec, a, b):
+        out = mont_mul_bm_cuda(spec, a, b)
+        key = ("bm", spec.name, tuple(a.shape), tuple(b.shape))
+        if key not in seen:
+            seen.add(key)
+            _hold("mont_mul_bm", f"{what} {spec.name} {key[2]} x {key[3]}", out,
+                  mont_mul_bm_plain_rows(spec, a, b))
+        k3_counts[key[1:]] = k3_counts.get(key[1:], 0) + 1
+        return out
+
     def plain(fn, *args):
         in_plain[0] += 1
         try:
@@ -606,7 +654,9 @@ def checked_run(run, what: str):
 
     def select_reduce_checked(ops, tab, digits):
         out = select_reduce_cuda(ops, tab, digits)
-        _hold(variant("select_reduce", ops), f"{what} digits {tuple(digits.shape)}", out,
+        key = tuple(digits.shape)
+        k1_shapes[key] = k1_shapes.get(key, 0) + 1
+        _hold(variant("select_reduce", ops), f"{what} digits {key}", out,
               plain(select_reduce_plain_sliced, ops, tab, digits))
         return out
 
@@ -618,16 +668,17 @@ def checked_run(run, what: str):
         return out
 
     lm_cuda.mont_mul_cuda, k1.select_reduce_cuda = mont_mul_checked, select_reduce_checked
-    fin.msm_finish_cuda = msm_finish_checked
+    fin.msm_finish_cuda, field_cuda.mont_mul_bm_cuda = msm_finish_checked, mont_mul_bm_checked
     try:
         t = time.time()
         result = run()  # ends on the host
     finally:
         lm_cuda.mont_mul_cuda, k1.select_reduce_cuda = mont_mul_cuda, select_reduce_cuda
-        fin.msm_finish_cuda = msm_finish_cuda
-    log(f"checked {what} in {time.time() - t:.1f}s: K2 bit-exact at {len(seen)} distinct "
-        f"operand shapes, K1 and the finish limb-exact at both MSMs")
-    return result, counts
+        fin.msm_finish_cuda, field_cuda.mont_mul_bm_cuda = msm_finish_cuda, mont_mul_bm_cuda
+    log(f"checked {what} in {time.time() - t:.1f}s: K2 and K3 bit-exact at {len(seen)} "
+        f"distinct operand shapes, K1 limb-exact at {sorted(k1_shapes)} and the finish "
+        "after each")
+    return result, counts, k1_shapes, k3_counts
 
 
 def _plane(np_rng, spec, shape):
@@ -640,37 +691,40 @@ def _plane(np_rng, spec, shape):
     return rand_planes(np_rng, spec, (lead, shape[-2], B)).reshape(shape)
 
 
-def time_k2(np_rng, proof_shapes: dict, lanes: int):
-    """K2 at each operand shape of one prove_lm proof (most launches first),
-    then at one product wave of the per-key G1 table build (6 stacked
-    products of 4 rows, `lanes` wide): the wrapper (`ms`), the kernel alone
-    (`device_ms`), the host's time to queue one wrapper call (`host_us`)."""
+def time_k2(np_rng, proof_shapes: dict, lanes: int | None, path: str = "proof"):
+    """K2 at each operand shape of one proof (most launches first), then,
+    given `lanes`, at one product wave of the per-key G1 table build (6
+    stacked products of 4 rows, `lanes` wide): the wrapper (`ms`), the
+    kernel alone (`device_ms`), the host's time to queue one wrapper call
+    (`host_us`)."""
     from zkmember_tpu_torch import kernels
     from zkmember_tpu_torch.fields import lm_cuda, spec as fs
 
-    names = {s.name: s for s in (fs.BLS_FR, fs.BLS_FQ, fs.BW6_FQ)}
+    names = {s.name: s for s in (fs.BLS_FR, fs.BLS_FQ, fs.BW6_FR, fs.BW6_FQ)}
     cases = [(names[f], sa, sb, k) for (f, sa, sb), k in
              sorted(proof_shapes.items(), key=lambda kv: -kv[1])]
-    wide = (6 * 4, fs.BLS_FQ.n, lanes)
-    cases.append((fs.BLS_FQ, wide, wide, 0))
+    if lanes:
+        wide = (6 * 4, fs.BLS_FQ.n, lanes)
+        cases.append((fs.BLS_FQ, wide, wide, 0))
     lib = kernels.library()
     out = []
     for spec, sa, sb, launches in cases:
         a, b = _plane(np_rng, spec, sa), _plane(np_rng, spec, sb)
         got = lm_cuda.mont_mul_cuda(spec, a, b)
-        _hold("mont_mul", f"timed {spec.name} {sa} x {sb}", got,
-              lm_cuda.mont_mul_plain(spec, a, b))
+        err = _hold("mont_mul", f"timed {spec.name} {sa} x {sb}", got,
+                    lm_cuda.mont_mul_plain(spec, a, b))
         raw, keep = raw_launch(lib.zk_mont_mul, lm_cuda.prepare, spec, a, b)
         n_elem = got.numel() // spec.n
         r = {
-            "field": spec.name, "shape": list(sa), "operand_b": list(sb),
-            "launches": launches, "per": "proof" if launches else "key",
+            "field": spec.name, "shape": list(sa), "operand_b": list(sb), "path": path,
+            "launches": launches, "per": "proof" if launches else "key", "max_abs_err": err,
             "ms": cuda_ms(lambda: lm_cuda.mont_mul_cuda(spec, a, b)),
             "device_ms": device_ms(raw),
             "host_us": host_us(lambda: lm_cuda.mont_mul_cuda(spec, a, b)),
             "plain_ms": cuda_ms(lambda: lm_cuda.mont_mul_plain(spec, a, b), reps=1),
             "bound": _bound((a.numel() + b.numel() + got.numel()) * 4,
                             n_elem * _imads(spec)),
+            "in_l2": (a.numel() + b.numel() + got.numel()) * 4 <= L2_BYTES,
         }
         del keep
         out.append(r)
@@ -693,8 +747,8 @@ def raw_launch(fn, prepare, spec, a, b):
 
 def _shape_row(r: dict) -> dict:
     """A kernel's entry of the kernels line at one more shape of a path."""
-    row = {k: r[k] for k in ("path", "group", "shape", "launches", "max_abs_err", "ms",
-                             "plain_ms") if k in r}
+    row = {k: r[k] for k in ("path", "group", "shape", "operand_b", "launches", "max_abs_err",
+                             "ms", "plain_ms", "device_ms", "in_l2") if k in r}
     return {**row, "bound_ms": r["bound"][0], "bound_by": r["bound"][1], "library_ms": None}
 
 
@@ -707,11 +761,12 @@ def _bound(nbytes: float, imads: float):
 def phase_profile():
     """One more run of each prover path that ran (prove_lm after `prove`, a
     batch of BATCH_TIMED after `prove_batch`, the depth-32 proof after
-    `scale`, the v1 prover after `prove_v1`) under torch.profiler: the
-    kernels' device time, the device's idle share against that path's timed
-    run, and the kernels with the most device time.  Not part of the
+    `scale`, the v1 prover after `prove_v1`, a Marlin proof after `marlin`)
+    under torch.profiler: the kernels' device time, the device's idle share
+    against that path's timed run, and the kernels with the most device
+    time.  Not part of the
     default run: reading a trace of ~200k launches takes minutes."""
-    from zkmember_tpu_torch.snark import groth16, prove_lm
+    from zkmember_tpu_torch.snark import groth16, marlin, prove_lm
 
     if "keys" in STATE:
         _profile("profile", RESULTS["prove_s"],
@@ -733,6 +788,10 @@ def phase_profile():
         cs, _, rng = _membership_circuit(16)
         _profile("profile_v1", RESULTS["prove_v1_s"],
                  lambda: groth16.prove(STATE["pk_v1"], cs, rng=rng, device="cuda"))
+    if "marlin" in STATE:
+        ipk, cs, state = STATE["marlin"]
+        _profile("profile_marlin", RESULTS["marlin"]["prove_s"],
+                 lambda: marlin.prove(ipk, cs, rng=_rng_at(state), device="cuda"))
 
 
 def _profile(label: str, timed_s: float, fn) -> None:
@@ -836,39 +895,47 @@ def phase_k3(np_rng):
     # over a 16,384-row tile, and the widest Pippenger wave (six stacked
     # products over the (32 windows, 8192 pairs) grid); then BW6-761's
     # fixed-base step (Fq at n = 48, the same tile)
-    from zkmember_tpu_torch import kernels
-
-    lib = kernels.library()
-    timed = []
-    for spec, shape, b_shape in ((fs.BLS_FR, (8192, 16), (8192, 16)),
-                                 (fs.BLS_FR, (3, 8192, 16), (8192, 16)),
-                                 (fs.BLS_FQ, (6, 16384, 24), (6, 16384, 24)),
-                                 (fs.BLS_FQ, (6, 32, 8192, 24), (6, 32, 8192, 24)),
-                                 (fs.BW6_FQ, (6, 16384, 48), (6, 16384, 48))):
-        a = rand_rows(np_rng, spec, shape)
-        b = rand_rows(np_rng, spec, b_shape)
-        err = _hold("mont_mul_bm", f"timed {spec.name} {shape} x {b_shape}", k3(spec, a, b),
-                    mont_mul_bm_plain_rows(spec, a, b))
-        rows = a.numel() // spec.n
-        nbytes = (a.numel() + b.numel() + a.numel()) * 4
-        raw, keep = raw_launch(lib.zk_mont_mul_bm, field_cuda.prepare, spec, a, b)
-        timed.append({
-            "field": spec.name, "shape": list(shape), "operand_b": list(b.shape),
-            "max_abs_err": err,
-            "ms": cuda_ms(lambda: k3(spec, a, b)),
-            "device_ms": device_ms(raw),
-            "host_us": host_us(lambda: k3(spec, a, b)),
-            "plain_ms": cuda_ms(lambda: mont_mul_bm_plain_rows(spec, a, b), reps=1),
-            "bound": _bound(nbytes, rows * _imads(spec)),
-        })
-        del keep
-        r = timed[-1]
-        log(f"K3 at {shape} x {tuple(b.shape)}: wrapper {r['ms']:.4f} ms, kernel "
-            f"{r['device_ms']:.4f} ms, host {r['host_us']:.1f} us a call, plain "
-            f"{r['plain_ms']:.2f} ms, bound {r['bound'][0]:.4f} ms ({r['bound'][1]})")
+    timed = [time_k3(np_rng, spec, shape, b_shape)
+             for spec, shape, b_shape in ((fs.BLS_FR, (8192, 16), (8192, 16)),
+                                          (fs.BLS_FR, (3, 8192, 16), (8192, 16)),
+                                          (fs.BLS_FQ, (6, 16384, 24), (6, 16384, 24)),
+                                          (fs.BLS_FQ, (6, 32, 8192, 24), (6, 32, 8192, 24)),
+                                          (fs.BW6_FQ, (6, 16384, 48), (6, 16384, 48)))]
     RESULTS["mont_mul_bm_shapes"] = timed
     RESULTS["mont_mul_bm"] = timed[2]  # the fixed-base / curve-op wave
     RESULTS["mont_mul_bm_bw6"] = timed[4]  # the same wave over BW6-761 Fq
+
+
+def time_k3(np_rng, spec, shape, b_shape) -> dict:
+    """K3 on random rows of `shape` x `b_shape`, held against its plain
+    version, then timed: the wrapper (`ms`), the kernel alone (`device_ms`),
+    the host's time a call (`host_us`), the plain version, the bound."""
+    from zkmember_tpu_torch import kernels
+    from zkmember_tpu_torch.fields import field_cuda
+
+    k3 = field_cuda.mont_mul_bm_cuda
+    a = rand_rows(np_rng, spec, shape)
+    b = rand_rows(np_rng, spec, b_shape)
+    err = _hold("mont_mul_bm", f"timed {spec.name} {shape} x {b_shape}", k3(spec, a, b),
+                mont_mul_bm_plain_rows(spec, a, b))
+    rows = a.numel() // spec.n
+    nbytes = (a.numel() + b.numel() + a.numel()) * 4
+    raw, keep = raw_launch(kernels.library().zk_mont_mul_bm, field_cuda.prepare, spec, a, b)
+    r = {
+        "field": spec.name, "shape": list(shape), "operand_b": list(b.shape),
+        "max_abs_err": err,
+        "ms": cuda_ms(lambda: k3(spec, a, b)),
+        "device_ms": device_ms(raw),
+        "host_us": host_us(lambda: k3(spec, a, b)),
+        "plain_ms": cuda_ms(lambda: mont_mul_bm_plain_rows(spec, a, b), reps=1),
+        "bound": _bound(nbytes, rows * _imads(spec)),
+        "in_l2": nbytes <= L2_BYTES,
+    }
+    del keep
+    log(f"K3 at {shape} x {tuple(b.shape)}: wrapper {r['ms']:.4f} ms, kernel "
+        f"{r['device_ms']:.4f} ms, host {r['host_us']:.1f} us a call, plain "
+        f"{r['plain_ms']:.2f} ms, bound {r['bound'][0]:.4f} ms ({r['bound'][1]})")
+    return r
 
 
 def phase_setup():
@@ -1180,7 +1247,7 @@ def phase_prove_batch(np_rng):
     # checked batch: equal to sequential proofs, each verifies, bound to its leaf
     P = BATCH_CHECKED
     proofs, _, _ = _batch_equals_sequential(keys, circuits[:P], state, "batch")
-    checked, k2_shapes = checked_run(
+    checked, k2_shapes, *_ = checked_run(
         lambda: prove_lm.prove_batch(keys, cs_all[:P], rng=_rng_at(state)), f"batch of {P}")
     if not all(_same_proof(a, b) for a, b in zip(checked, proofs)):
         raise AssertionError("the checked batch differs from the first one")
@@ -1315,7 +1382,7 @@ def phase_scale(np_rng):
         raise AssertionError(f"the depth-32 proof at M = {keys.M} did not verify")
     if groth16.verify(keys.pk.vk, [public[0], (public[1] + 1) % keys.cfg.r], proof):
         raise AssertionError("the depth-32 proof verifies for a wrong leaf")
-    checked, k2_shapes = checked_run(lambda: prove_lm.prove(keys, cs), "depth-32 proof")
+    checked, k2_shapes, *_ = checked_run(lambda: prove_lm.prove(keys, cs), "depth-32 proof")
     if not groth16.verify(keys.pk.vk, public, checked):
         raise AssertionError("the checked depth-32 proof does not verify")
     if k2_shapes != k2_proof_shapes(keys.M):
@@ -1445,12 +1512,12 @@ def phase_bw6(np_rng):
         # build (K2 at n = 48), then a proof (K2 at n = 24, K1 and the finish
         # at n = 48 for G1 and G2)
         fresh = prove_lm.Groth16KeysLM(keys.pk, "cuda")
-        _, k2_tables = checked_run(fresh.build_tables, "bw6 table build")
+        _, k2_tables, *_ = checked_run(fresh.build_tables, "bw6 table build")
         del fresh
         if {f for f, _, _ in k2_tables} != {fs.BW6_FQ.name}:
             raise AssertionError(f"the BW6-761 table build ran K2 at {sorted(k2_tables)}")
-        checked, k2_shapes = checked_run(lambda: prove_lm.prove(keys, cs, rng=_rng_at(state)),
-                                         "bw6 proof")
+        checked, k2_shapes, *_ = checked_run(
+            lambda: prove_lm.prove(keys, cs, rng=_rng_at(state)), "bw6 proof")
         if not _same_proof(checked, proof):
             raise AssertionError("the checked BW6-761 proof differs from the timed one")
         if k2_shapes != k2_proof_shapes(keys.M, 1, fs.BW6_FR):
@@ -1511,8 +1578,284 @@ def phase_bw6(np_rng):
     RESULTS["bw6"] = out
 
 
+# ---------------------------------------------------------------------------
+# Marlin over KZG: universal setup, index, prove, verify
+# ---------------------------------------------------------------------------
+
+
+def marlin_k2_shapes(n_h: int, n_k: int, fr) -> dict:
+    """K2's operand shapes in one Marlin proof at |H| = n_h, |K| = n_k (all
+    its transforms on the device route), each with its launches: log2 N
+    butterfly stages of each NTT, one 1/N product a inverse NTT (PolyEngine
+    over ntt/lm.py): 4 inverse at |H|, 5 forward and 1 inverse at 4|H|, 9
+    forward and 1 inverse at |K|, 10 coset forward and 1 inverse at 8|K|."""
+    n = fr.n
+    transforms = ([(n_h, True)] * 4 + [(4 * n_h, False)] * 5 + [(4 * n_h, True)]
+                  + [(n_k, False)] * 9 + [(n_k, True)] + [(8 * n_k, False)] * 10
+                  + [(8 * n_k, True)])
+    out: dict = {}
+    for N, inverse in transforms:
+        stage = (fr.name, (n, N // 2), (n, N // 2))
+        out[stage] = out.get(stage, 0) + N.bit_length() - 1
+        if inverse:
+            scale = (fr.name, (n, N), (n, 1))
+            out[scale] = out.get(scale, 0) + 1
+    return out
+
+
+def _marlin_parts(proof):
+    """A Marlin proof's commitments, evaluations and witnesses, comparable."""
+    comms = [(c.c, c.shifted) for c in proof.comms1 + proof.comms2 + proof.comms3]
+    return (comms, proof.sigma3, proof.evals_beta1, proof.evals_beta2, proof.proof_beta1.w,
+            proof.proof_beta2.w)
+
+
+def _marlin_holds(ivk, public, proof, other_leaf, r: int, what: str) -> None:
+    """Raise unless `proof` verifies for `public` (root, leaf) and fails for a
+    wrong root (root + 1) and for another member's leaf."""
+    from zkmember_tpu_torch.snark import marlin
+
+    if not marlin.verify(ivk, public, proof):
+        raise AssertionError(f"the {what} does not verify")
+    if marlin.verify(ivk, [(public[0] + 1) % r, public[1]], proof):
+        raise AssertionError(f"the {what} verifies for a wrong root")
+    if marlin.verify(ivk, [public[0], other_leaf], proof):
+        raise AssertionError(f"the {what} verifies for another member's leaf")
+    log(f"{what} verifies; a wrong root and another member's leaf are rejected")
+
+
+def _marlin_run(stack: str, members: int, out: dict, timed: bool):
+    """Universal setup, index, a first proof (it builds the domains' twiddle
+    tables) and, with `timed`, one more proof with the launch counts reset
+    just before it and read just after, on the `members`-member registrar
+    of `stack`.  Fills `out`; returns (pp, ipk, ivk, cs, public, other_leaf,
+    state, proof)."""
+    import torch
+
+    from zkmember_tpu_torch import kernels
+    from zkmember_tpu_torch.app import bench_harness
+    from zkmember_tpu_torch.snark import groth16, kzg, marlin
+    from zkmember_tpu_torch.utils import rng as frng
+
+    curve = bench_harness.CURVES[stack]
+    cs, public, _ = _membership_circuit(members, stack)
+    digests = _registrar(members, stack)[3]
+    other_leaf = next(d for d in digests if d != public[1])
+    nc, nv, nnz = cs.num_constraints, cs.num_variables, bench_harness._nnz(cs)
+    rng = frng.test_rng()
+    kernels.reset_launches()
+    torch.cuda.synchronize()
+    phases: dict = {}
+    t = time.time()
+    pp = marlin.universal_setup(nc, nv, nnz, curve=curve, rng=rng, device="cuda",
+                                phase_times=phases)
+    out["setup_s"] = time.time() - t
+    out["setup_phases"] = phases
+    out["setup_launches"] = {k: v for k, v in kernels.LAUNCHES.items() if v}
+    kernels.reset_launches()
+    phases = {}
+    t = time.time()
+    ipk, ivk = marlin.index(pp, cs, device="cuda", phase_times=phases)
+    out["index_s"] = time.time() - t
+    out["index_phases"] = phases
+    out["index_launches"] = {k: v for k, v in kernels.LAUNCHES.items() if v}
+    info = ipk.info
+    out.update(constraints=nc, variables=nv, nnz=nnz, n_h=info.n_h, n_k=info.n_k,
+               max_degree=pp.max_degree, lanes=kzg.table_lanes(pp.max_degree))
+    out["table_rows"] = -(-(pp.max_degree + 1) // out["lanes"])
+    log(f"marlin {stack} {members} members: {nc} constraints, {nv} vars, nnz {nnz}, "
+        f"|H| {info.n_h}, |K| {info.n_k}, SRS degree {pp.max_degree} "
+        f"({out['table_rows']} rows of {out['lanes']}); setup {out['setup_s']:.2f}s "
+        f"({out['setup_launches']}), index {out['index_s']:.2f}s "
+        f"({out['index_launches']}; {phases})")
+    state = rng.getstate()
+    kernels.reset_launches()
+    t = time.time()
+    proof = marlin.prove(ipk, cs, rng=_rng_at(state), device="cuda")
+    out["first_prove_s"] = time.time() - t
+    out["first_launches"] = {k: v for k, v in kernels.LAUNCHES.items() if v}
+    log(f"marlin {stack} first proof (the domains' twiddle tables) in "
+        f"{out['first_prove_s']:.2f}s; launches {out['first_launches']}")
+    if timed:
+        kernels.reset_launches()
+        torch.cuda.synchronize()
+        t = time.time()
+        again = marlin.prove(ipk, cs, rng=_rng_at(state), device="cuda")
+        out["prove_s"] = time.time() - t
+        out["launches"] = dict(kernels.LAUNCHES)
+        log(f"marlin {stack} timed proof in {out['prove_s']:.3f}s; launches {out['launches']}")
+        if _marlin_parts(again) != _marlin_parts(proof):
+            raise AssertionError("two Marlin proofs from the same rng state differ")
+    t = time.time()
+    marlin.verify(ivk, public, proof)
+    out["verify_s"] = time.time() - t
+    _marlin_holds(ivk, public, proof, other_leaf, groth16.pairing_config(curve).r,
+                  f"{stack} Marlin proof")
+    return pp, ipk, ivk, cs, public, other_leaf, state, proof
+
+
+def _marlin_checked_setup_index(stack: str, pp, ivk, cs, what: str):
+    """One more universal setup (test_rng(), as the first) and index of `cs`
+    under checked_run: they must give the same SRS powers and the same
+    matrix commitments as `pp` and `ivk`.  Returns K3's launches of the
+    setup by shape and K1's digit shapes of the index."""
+    from zkmember_tpu_torch.app import bench_harness
+    from zkmember_tpu_torch.snark import marlin
+    from zkmember_tpu_torch.utils import rng as frng
+
+    fresh, _, _, k3_setup = checked_run(lambda: marlin.universal_setup(
+        cs.num_constraints, cs.num_variables, bench_harness._nnz(cs),
+        curve=bench_harness.CURVES[stack], rng=frng.test_rng(), device="cuda"),
+        f"{what} setup")
+    for a, b in ((fresh.powers.x, pp.powers.x), (fresh.powers.y, pp.powers.y)):
+        if not bool((a == b).all()):
+            raise AssertionError(f"the checked {what} setup gives another SRS")
+    (_, ivk2), _, k1_index, _ = checked_run(lambda: marlin.index(fresh, cs, device="cuda"),
+                                            f"{what} index")
+    for name in marlin.MATRICES:
+        got = [(c.c, c.shifted) for c in ivk2.matrix_comms[name]]
+        if got != [(c.c, c.shifted) for c in ivk.matrix_comms[name]]:
+            raise AssertionError(f"the checked {what} index's {name} commitments differ")
+    log(f"checked {what} setup and index: the same SRS and matrix commitments")
+    return k3_setup, [list(k) for k in k1_index]
+
+
+def phase_marlin(np_rng):
+    """Marlin over KZG on the card: the 16-member BLS12-381 registrar (the
+    prove phase's; |H| = 2^14, |K| = 2^15, SRS degree 196,608) through
+    universal setup, index, a first and a timed proof (launches counted:
+    K2, K1 and the finish only), proof phases, verify against a wrong root
+    and another leaf, zero knowledge (another rng, other commitments); one
+    more setup, index and proof with every kernel call held against its
+    plain version; K1 and the finish timed at the proof's commit shapes,
+    K2 at its NTT shapes, K3 at setup's; then the pedersen761 registrar of
+    MARLIN_BW6_MEMBERS (BW6-761: K1 and the finish at n = 48) checked the
+    same way; then the bench harness's Marlin modes in subprocesses."""
+    import random
+
+    from zkmember_tpu_torch.fields import spec as fs
+    from zkmember_tpu_torch.snark import groth16, kzg, marlin, prove_lm
+
+    out: dict = {}
+    pp, ipk, ivk, cs, public, other_leaf, state, proof = _marlin_run("pedersen381", 16, out,
+                                                                     timed=True)
+    info = ipk.info
+    if (info.n_h, info.n_k, pp.max_degree) != (1 << 14, 1 << 15, 196_608):
+        raise AssertionError(f"the 16-member Marlin index has |H| {info.n_h}, |K| {info.n_k}, "
+                             f"SRS degree {pp.max_degree}, not 2^14, 2^15, 196,608")
+    launches = out["launches"]
+    want = dict.fromkeys(launches, 0)
+    want.update(mont_mul=sum(marlin_k2_shapes(info.n_h, info.n_k, fs.BLS_FR).values()),
+                select_reduce_fp=4, msm_finish_fp=8)  # rounds 1-3 and the openings
+    if launches != want:
+        raise AssertionError(f"the Marlin proof launched {launches}, not {want}")
+    if out["setup_launches"].get("mont_mul_bm", 0) == 0:
+        raise AssertionError(f"the Marlin setup launched {out['setup_launches']}")
+
+    phases: dict = {}
+    t = time.time()
+    marlin.prove(ipk, cs, rng=_rng_at(state), device="cuda", phase_times=phases)
+    out["breakdown"] = {"total_s": time.time() - t, **phases}
+    log("marlin phases of a proof synchronized at each phase: " + ", ".join(
+        f"{k} {v:.3f}s" for k, v in out["breakdown"].items()))
+
+    other = marlin.prove(ipk, cs, rng=random.Random(2), device="cuda")
+    if other.comms1[0].c == proof.comms1[0].c or other.comms1[1].c == proof.comms1[1].c:
+        raise AssertionError("another rng gives the same w_hat or z_A commitment")
+    if not marlin.verify(ivk, public, other):
+        raise AssertionError("the Marlin proof from another rng does not verify")
+    log("marlin: another rng gives other w_hat and z_A commitments, and verifies")
+
+    # every kernel call held against its plain version: a fresh setup and its
+    # index equal to the first (K3 at setup's fixed-base waves; the table
+    # build's K2 at Fq, K2 at the inverse NTTs of |K|, K1 and the finish at
+    # the matrix commitments' rows), then a proof
+    k3_setup, out["index_k1_shapes"] = _marlin_checked_setup_index(
+        "pedersen381", pp, ivk, cs, "marlin")
+    checked, k2_shapes, k1_shapes, _ = checked_run(
+        lambda: marlin.prove(ipk, cs, rng=_rng_at(state), device="cuda"), "marlin proof")
+    if _marlin_parts(checked) != _marlin_parts(proof):
+        raise AssertionError("the checked Marlin proof differs from the timed one")
+    if k2_shapes != marlin_k2_shapes(info.n_h, info.n_k, fs.BLS_FR):
+        raise AssertionError(f"the Marlin proof's K2 shapes {k2_shapes} differ from "
+                             f"{marlin_k2_shapes(info.n_h, info.n_k, fs.BLS_FR)}")
+    out["k1_shapes"] = [[list(k), v] for k, v in k1_shapes.items()]
+
+    # times: K1 and the finish at each commit shape of the proof, K2 at its
+    # NTT shapes, K3 at setup's most launched shape
+    tab = kzg._powers_tab(pp, kzg.table_lanes(pp.max_degree))  # built by the index
+    ops = prove_lm.sw_ops(groth16.pairing_config("bls12_381"), False, "cuda")
+    for (W, P, R, B), k in sorted(k1_shapes.items(), key=lambda kv: kv[0][2]):
+        time_k1_finish(np_rng, ops, tab, W, P, R, B, "marlin proof", "G1",
+                       {"select_reduce_fp": k, "msm_finish_fp": 2 * k})
+    out["mont_mul_shapes"] = time_k2(np_rng, k2_shapes, None, "marlin proof")
+    (_, a3, b3), k3n = max(k3_setup.items(), key=lambda kv: kv[1])
+    out["mont_mul_bm"] = dict(time_k3(np_rng, fs.BLS_FQ, a3, b3), path="marlin setup",
+                              launches=out["setup_launches"]["mont_mul_bm"],
+                              launches_at_shape=k3n)
+    out["k3_setup_shapes"] = [[f, list(a), list(b), v] for (f, a, b), v in k3_setup.items()]
+    STATE["marlin"] = (ipk, cs, state)
+
+    # BW6-761: K1 and the finish at n = 48, K2 at BW6-761 Fr (n = 24)
+    bw6: dict = {}
+    bpp, bipk, bivk, bcs, _, _, bstate, bproof = _marlin_run("pedersen761", MARLIN_BW6_MEMBERS,
+                                                             bw6, timed=False)
+    binfo = bipk.info
+    want = {"mont_mul": sum(marlin_k2_shapes(binfo.n_h, binfo.n_k, fs.BW6_FR).values()),
+            "select_reduce_fp48": 4, "msm_finish_fp48": 8}
+    if bw6["first_launches"] != want:
+        raise AssertionError(f"the BW6-761 Marlin proof launched {bw6['first_launches']}, "
+                             f"not {want}")
+    bk3, bw6["index_k1_shapes"] = _marlin_checked_setup_index(
+        "pedersen761", bpp, bivk, bcs, "bw6 marlin")
+    bw6["k3_setup_shapes"] = [[f, list(a), list(b), v] for (f, a, b), v in bk3.items()]
+    bchecked, _, bk1, _ = checked_run(
+        lambda: marlin.prove(bipk, bcs, rng=_rng_at(bstate), device="cuda"), "bw6 marlin proof")
+    if _marlin_parts(bchecked) != _marlin_parts(bproof):
+        raise AssertionError("the checked BW6-761 Marlin proof differs from the first")
+    bw6["k1_shapes"] = [[list(k), v] for k, v in bk1.items()]
+    out["bw6"] = bw6
+    del bpp, bipk, bivk
+
+    # the harness's Marlin modes in subprocesses, on both stacks
+    out["harness"] = {}
+    for label, args, want_names in (
+        ("marlin", ["--systems", "marlin", "--sizes", "16", "--reps", "1"],
+         ["setup+index_16", "prove_16", "prove_16", "verify_16"]),
+        ("universal", ["--systems", "marlin", "--universal", "--sizes", "4,16", "--reps", "1"],
+         ["setup+index_16", "prove_4", "verify_4", "prove_16", "verify_16"]),
+        ("bw6", ["--stack", "pedersen761", "--systems", "marlin", "--sizes",
+                 str(MARLIN_BW6_MEMBERS), "--reps", "1"],
+         [f"setup+index_{MARLIN_BW6_MEMBERS}", f"prove_{MARLIN_BW6_MEMBERS}",
+          f"prove_{MARLIN_BW6_MEMBERS}", f"verify_{MARLIN_BW6_MEMBERS}"]),
+    ):
+        t = time.time()
+        rows = [json.loads(line) for line in
+                _run_module("zkmember_tpu_torch.app.bench_harness", args).splitlines()
+                if line.startswith("{")]
+        system = "marlin_universal" if label == "universal" else "marlin"
+        curve = "bw6_761" if label == "bw6" else "bls12_381"
+        names = [r["name"] for r in rows]
+        if names != [f"{curve}_{system}_{n}" for n in want_names]:
+            raise AssertionError(f"the harness's {label} rows {names} are not {want_names}")
+        if not [r for r in rows if "_verify_" in r["name"]] or not all(
+                r.get("verified") is True for r in rows if "_verify_" in r["name"]):
+            raise AssertionError(f"a harness {label} proof does not verify: {rows}")
+        out["harness"][label] = {"rows": rows, "wall_s": time.time() - t}
+        log(f"harness {label}: rows {names}, verified")
+    RESULTS["marlin"] = out
+
+
 PHASES = ("device", "build", "k2", "k1", "prove", "k3", "setup", "prove_v1", "cli",
-          "prove_batch", "harness", "scale", "bw6")
+          "prove_batch", "harness", "scale", "bw6", "marlin")
+
+
+def marlin_line() -> str:
+    """The Marlin phase's stdout line."""
+    return json.dumps({
+        "metric": "marlin_bls12_381_16members", **RESULTS["marlin"],
+        "device": RESULTS["device"], "nvidia_smi": RESULTS["smi"],
+    })
 
 
 def main() -> int:
@@ -1562,6 +1905,8 @@ def main() -> int:
             phase_scale(np_rng)
         elif name == "bw6":
             phase_bw6(np_rng)
+        elif name == "marlin":
+            phase_marlin(np_rng)
         elif name == "profile":
             phase_profile()
         else:
@@ -1597,6 +1942,7 @@ def main() -> int:
             "metric": "groth16_bw6_761_pedersen761_16members", **RESULTS["bw6"],
             "device": RESULTS["device"], "nvidia_smi": RESULTS["smi"],
         }))
+        print(marlin_line())
         print(RESULTS["smi"])
         sources = {
             "mont_mul": ("zkmember_tpu_torch/csrc/mont_mul.cu",
@@ -1637,17 +1983,22 @@ def main() -> int:
                 "library_ms": None, "shape": r["shape"],
             }
             row["path"] = r.get("path", "proof" if name in PROVE_KERNELS else "v1 proof")
-            for k in ("group", "operand_b", "device_ms", "host_us"):
+            for k in ("group", "operand_b", "device_ms", "host_us", "in_l2"):
                 if k in r:
                     row[k] = r[k]
-            if name == "mont_mul":  # launches of the batched, depth-32 and BW6-761 proofs
+            if name == "mont_mul":  # launches of the batched, depth-32, BW6-761 and Marlin
+                # proofs; K2 at a Marlin proof's NTT shapes
                 row["batched_launches"] = RESULTS["prove_batch"]["launches"][name]
                 row["scale_launches"] = RESULTS["scale"]["launches"][name]
                 row["bw6_launches"] = RESULTS["bw6"]["launches"][name]
-            elif name == "mont_mul_bm":  # the depth-32 setup; BW6-761's v1 proof at n = 48
+                row["marlin_launches"] = RESULTS["marlin"]["launches"][name]
+                more = RESULTS["marlin"]["mont_mul_shapes"]
+            elif name == "mont_mul_bm":  # the depth-32 setup; BW6-761's v1 proof at n = 48;
+                # the Marlin setup's fixed-base wave
                 row["scale_launches"] = RESULTS["scale"]["setup_launches"][name]
                 more = [dict(RESULTS["mont_mul_bm_bw6"], path="bw6 v1 proof",
-                             launches=RESULTS["bw6"]["launches_v1"][name])]
+                             launches=RESULTS["bw6"]["launches_v1"][name]),
+                        RESULTS["marlin"]["mont_mul_bm"]]
             row["shapes"] = [_shape_row(m) for m in more]
             rows.append(row)
         print(json.dumps({"kernels": rows}))
@@ -1655,6 +2006,9 @@ def main() -> int:
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count(),
         }}))
+    elif "marlin" in RESULTS:  # the phase alone: its line and the kernel times
+        print(marlin_line())
+        print(json.dumps({"msm_times": MSM_TIMES}))
     log("done")
     return 0
 

@@ -1,7 +1,8 @@
 """The port's app harnesses (``app/bench_harness.py``, ``app/scale.py``)
-against the JAX package's: the bench rows, the refusals of what the port
-does not have, the checkpoint load (a pedersen761 key too), the synthetic depth-32 paths and the
-batched scale circuit."""
+against the JAX package's: the bench rows, the systems `main` dispatches
+to (Marlin and its universal mode among them), the universal mode's
+padding and Marlin's rows, the checkpoint load (a pedersen761 key too),
+the synthetic depth-32 paths and the batched scale circuit."""
 
 import json
 import types
@@ -45,17 +46,111 @@ def test_row_matches_reference(kw):
 
 
 @pytest.mark.parametrize("argv,what", [
-    (["--systems", "marlin"], "marlin"),
-    (["--systems", "groth16,marlin"], "marlin"),
-    (["--universal"], "--universal"),
-    (["--stack", "pedersen761", "--systems", "marlin"], "marlin"),
+    (["--systems", "marlin"], [("groth16", None), ("marlin", False)][1:]),
+    (["--systems", "groth16,marlin"], [("groth16", None), ("marlin", False)]),
+    (["--universal"], [("groth16", None)]),
+    (["--stack", "pedersen761", "--systems", "marlin", "--universal"], [("marlin", True)]),
 ], ids=["marlin", "groth16_marlin", "universal", "pedersen761"])
-def test_main_refuses_what_is_not_ported(argv, what, capsys):
-    """Marlin is refused on either stack; pedersen761 itself is ported
-    (its rows: test_pedersen761_rows_on_toy_keys)."""
-    assert bench_harness.main(argv + ["--device", "cpu"]) == 2
-    err = capsys.readouterr().err
-    assert what in err and "not ported" in err and "pedersen761" not in err
+def test_main_refuses_what_is_not_ported(argv, what, monkeypatch, capsys):
+    """Nothing is refused any more: --systems marlin and --universal reach
+    bench_marlin (Marlin's universal mode with --universal), on either
+    stack, in the order given, with the sizes, reps and device; --universal
+    leaves Groth16 as it is (the reference ignores it there)."""
+    calls = []
+    monkeypatch.setattr(bench_harness, "bench_groth16", lambda stack, sizes, **kw: calls.append(
+        ("groth16", None, stack, sizes, kw["reps"], kw["device"])))
+    monkeypatch.setattr(bench_harness, "bench_marlin", lambda stack, sizes, **kw: calls.append(
+        ("marlin", kw["universal"], stack, sizes, kw["reps"], kw["device"])))
+    assert bench_harness.main(argv + ["--sizes", "4,16", "--reps", "1", "--device", "cpu"]) == 0
+    stack = "pedersen761" if "pedersen761" in argv else "pedersen381"
+    assert calls == [(system, universal, stack, [4, 16], 1, "cpu") for system, universal in what]
+    assert "not ported" not in capsys.readouterr().err
+
+
+def test_registrar_pads_to_the_universal_size(params):
+    """pad_to (Marlin's universal mode) pads the registrar with the default
+    member's digest, as the reference's _build does; the default member's
+    join date is now, so both packages' clocks are pinned."""
+    from datetime import datetime, timezone
+
+    from zkmember_tpu.app import member as jmember
+    from zkmember_tpu_torch.app import member
+
+    (cfg, lp, np_), (jcfg, jlp, jnp_) = params
+    fixed = datetime(2024, 1, 2, 3, 4, 5, tzinfo=timezone.utc)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(member, "_now", lambda: fixed)
+        mp.setattr(jmember, "_now", lambda: fixed)
+        reg = bench_harness._registrar("pedersen381", 2, pad_to=4)
+        pad = jmember.Member.default().hash(jlp)
+        want = [m.hash(jlp) for m in jmember.generate_members(2)] + [pad, pad]
+        unpadded = bench_harness._registrar("pedersen381", 2, pad_to=2).digests
+    assert reg.digests == want and unpadded == want[:2]
+    assert reg.tree.root() == japp.new_membership_tree(jlp, jnp_, want).root()
+
+
+def _two_input_circuit(CS, gadgets, mod):
+    """A toy with the membership circuit's public inputs (root, leaf):
+    root = w^3 and leaf = w + 1, w = 6."""
+    cs = CS(mod.Fr)
+    w_val = 6
+    root = gadgets.FpVar.new_input(cs, w_val ** 3)
+    leaf = gadgets.FpVar.new_input(cs, w_val + 1)
+    w = gadgets.FpVar.new_witness(cs, w_val)
+    (w * w * w).enforce_equal(root, "root")
+    w.add_constant(1).enforce_equal(leaf, "leaf")
+    return cs, w_val ** 3, w_val + 1
+
+
+def test_bench_marlin_rows_match_reference(monkeypatch):
+    """bench_marlin on a circuit small enough for the plain kernels (the
+    registrar's circuit replaced by a two-input toy): universal mode runs
+    setup, index, prove and verify for real; the circuit-specific mode then
+    runs on that SRS, index and proof (verify for real).  Every row carries
+    the reference's name and fields, verify true."""
+    from zkmember_tpu_torch.curves import bls12_381 as bls
+    from zkmember_tpu_torch.r1cs import gadgets as g
+    from zkmember_tpu_torch.r1cs.cs import ConstraintSystem
+    from zkmember_tpu_torch.snark import marlin
+
+    cs, root, leaf = _two_input_circuit(ConstraintSystem, g, bls)
+    built = []
+    monkeypatch.setattr(bench_harness, "_build",
+                        lambda stack, n, pad_to=None: built.append((n, pad_to)) or (cs, root, leaf))
+    made = {}
+
+    def keep(name, fn):
+        def run(*a, **kw):
+            made[name] = fn(*a, **kw)
+            return made[name]
+        monkeypatch.setattr(marlin, name, run)
+
+    for name in ("universal_setup", "index", "prove"):
+        keep(name, getattr(marlin, name))
+    rows = []
+    bench_harness.bench_marlin("pedersen381", [2], universal=True, reps=1, out=rows.append,
+                               device="cpu")
+    assert built == [(2, None), (2, 2)]
+    assert made["universal_setup"].max_degree == marlin.max_degree_bound(
+        cs.num_constraints, cs.num_variables, bench_harness._nnz(cs))
+    for name in ("universal_setup", "index", "prove"):
+        monkeypatch.setattr(marlin, name, lambda *a, _v=made[name], **kw: _v)
+    bench_harness.bench_marlin("pedersen381", [2], universal=False, reps=2, out=rows.append,
+                               device="cpu")
+    parsed = [json.loads(r) for r in rows]
+    assert [r["name"] for r in parsed] == [
+        "bls12_381_marlin_universal_setup+index_2", "bls12_381_marlin_universal_prove_2",
+        "bls12_381_marlin_universal_verify_2", "bls12_381_marlin_setup+index_2",
+        "bls12_381_marlin_prove_2", "bls12_381_marlin_prove_2", "bls12_381_marlin_prove_2",
+        "bls12_381_marlin_verify_2"]
+    for r in parsed:
+        system, phase = r["name"][len("bls12_381_"):-len("_2")].rsplit("_", 1)
+        stats = {k: r[k] for k in ("min", "median", "reps") if k in r}
+        want = jbench._row("bls12_381", system, phase, 2, r["seconds"], cs,
+                           ok=r.get("verified"), stats=stats or None)
+        assert json.loads(want) == r
+    assert [r.get("verified") for r in parsed if r["name"].endswith("verify_2")] == [True, True]
+    assert parsed[2]["reps"] == 1 and parsed[-1]["reps"] == parsed[-2]["reps"] == 2
 
 
 def test_pedersen761_rows_on_toy_keys(tmp_path):

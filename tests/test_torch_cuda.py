@@ -401,3 +401,67 @@ def test_kernel_wrappers_raise_on_an_unsupported_n():
     with pytest.raises(ValueError, match="n = 16"):
         finish_cuda.msm_finish(ops, planes)
     assert kernels.LAUNCHES == before
+
+
+def test_kzg_multi_row_commit_matches_plain():
+    """A batch of KZG commitments over an SRS table of several rows (64
+    lanes each), one of them shifted across a row boundary: the card's (K3
+    setup, K2 table, K1 and the finish over the rows) equal the plain
+    versions' on the CPU from the same rng."""
+    _need_card()
+    from zkmember_tpu_torch.snark import kzg
+    from zkmember_tpu_torch.utils import rng as frng
+
+    pps = [kzg.setup(200, rng=frng.test_rng(), device=d) for d in ("cuda", "cpu")]
+    for a, b in ((pps[0].powers.x, pps[1].powers.x), (pps[0].powers.y, pps[1].powers.y)):
+        assert torch.equal(a.cpu(), b)
+    rng = random.Random(12)
+    polys = [([rng.randrange(bls.R) for _ in range(k)], bound)
+             for k, bound in ((201, None), (70, 100), (3, None), (64, 63))]
+    before = kernels.LAUNCHES["select_reduce_fp"]
+    got = kzg.commit_many(pps[0], polys, 64)  # 4 rows of 64 lanes for 201 powers
+    assert kernels.LAUNCHES["select_reduce_fp"] == before + 1
+    want = kzg.commit_many(pps[1], polys, 64)
+    assert [(c.c, c.shifted) for c in got] == [(c.c, c.shifted) for c in want]
+    assert all(c.c is not None for c in got)
+
+
+def test_marlin_toy_proof_on_the_card_equals_the_plain_one():
+    """The toy circuit of tests/test_marlin.py through universal setup,
+    index and prove on the card (SRS of degree 192: one table row of 256
+    lanes) and on the CPU (plain versions) from the same rng: the same
+    index commitments and the same proof, which verifies; a wrong public
+    input does not."""
+    _need_card()
+    from zkmember_tpu_torch.r1cs import gadgets as g
+    from zkmember_tpu_torch.r1cs.cs import ConstraintSystem
+    from zkmember_tpu_torch.snark import marlin
+    from zkmember_tpu_torch.utils import rng as frng
+
+    cs = ConstraintSystem(bls.Fr)
+    out_val = (7 + 1) ** 2 * 7 % bls.R
+    out = g.FpVar.new_input(cs, out_val)
+    w = g.FpVar.new_witness(cs, 7)
+    w1 = w.add_constant(1)
+    (w1 * w1 * w).enforce_equal(out, "out")
+    results = []
+    for device in ("cuda", "cpu"):
+        rng = frng.test_rng()
+        pp = marlin.universal_setup(cs.num_constraints, cs.num_variables, 32, rng=rng,
+                                    device=device)
+        ipk, ivk = marlin.index(pp, cs, device=device)
+        before = dict(kernels.LAUNCHES)
+        proof = marlin.prove(ipk, cs, rng=rng, device=device)
+        launched = {k: v - before[k] for k, v in kernels.LAUNCHES.items() if v != before[k]}
+        results.append((ivk, proof, launched))
+    (ivk, proof, launched), (ivk_cpu, proof_cpu, launched_cpu) = results
+    assert launched == {"select_reduce_fp": 4, "msm_finish_fp": 8} and launched_cpu == {}
+    for name in marlin.MATRICES:
+        assert [(c.c, c.shifted) for c in ivk.matrix_comms[name]] == \
+            [(c.c, c.shifted) for c in ivk_cpu.matrix_comms[name]]
+    parts = [([(c.c, c.shifted) for c in p.comms1 + p.comms2 + p.comms3], p.sigma3,
+              p.evals_beta1, p.evals_beta2, p.proof_beta1.w, p.proof_beta2.w)
+             for p in (proof, proof_cpu)]
+    assert parts[0] == parts[1]
+    assert marlin.verify(ivk, [out_val], proof)
+    assert not marlin.verify(ivk, [(out_val + 1) % bls.R], proof)

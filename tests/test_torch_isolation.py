@@ -2,9 +2,11 @@
 
 A fresh interpreter imports zkmember_tpu_torch, loads a key from a
 checkpoint and proves the toy cube circuit on the CPU with the limb-major
-prover, runs the port's own setup and v1 prover on it, loads the CLI, and
-then reports what it imported.  An AST scan checks every module of the
-package and chip_smoke.py.
+prover, runs the port's own setup and v1 prover on it, commits to a
+polynomial with the port's KZG, loads the CLI, the bench harness and
+Marlin, and then reports what it imported.  An AST scan checks every
+module of the package (KZG, Marlin, the transcript and the polynomial
+helpers among them) and chip_smoke.py.
 """
 
 import ast
@@ -35,8 +37,13 @@ keys = checkpoint.load_groth16_keys(sys.argv[1], device="cpu")
 proof = prove_lm.prove(keys, cs, rng=frng.test_rng(3))
 pk, vk = groth16.setup(cs, "bls12_381", frng.test_rng(), device="cpu")
 proof_v1 = groth16.prove(pk, cs, rng=frng.test_rng(4), device="cpu")
-from zkmember_tpu_torch.app import cli
+from zkmember_tpu_torch.app import bench_harness, cli
+from zkmember_tpu_torch.snark import kzg, marlin, transcript
+from zkmember_tpu_torch.utils import poly
+pp = kzg.setup(8, rng=frng.test_rng(), device="cpu")
+v, opening = kzg.open_at(pp, [1, 2, 3], 5)
 print(json.dumps({
+    "kzg": kzg.check(pp, kzg.commit(pp, [1, 2, 3]), 5, v, opening),
     "ok": groth16.verify(keys.pk.vk, [27], proof),
     "bad": groth16.verify(keys.pk.vk, [28], proof),
     "ok_v1": groth16.verify(vk, [27], proof_v1),
@@ -75,7 +82,8 @@ def test_port_proves_without_jax(tmp_path):
     )
     assert res.returncode == 0, res.stderr[-4000:]
     got = json.loads(res.stdout.strip().splitlines()[-1])
-    assert got == {"ok": True, "bad": False, "ok_v1": True, "bad_v1": False, "modules": []}
+    assert got == {"kzg": True, "ok": True, "bad": False, "ok_v1": True, "bad_v1": False,
+                   "modules": []}
 
 
 def _sources():

@@ -1,21 +1,27 @@
 """Benchmark harness on the PyTorch/CUDA port (counterpart of
 zkmember_tpu.app.bench_harness): the reference's Criterion grid.
 
-Per registrar size: build the tree, pick a random member, time prove and
-verify on the limb-major prover (``prove_lm``); row names follow the
-reference's ``{curve}_{system}_{prove|verify}_{n}`` convention, one JSON
-line each.  Setup is timed too, or the key is loaded from
-``--checkpoint-dir``.  ``--batch P`` times P proofs of members of one
-registrar through ``prove_lm.prove_batch`` and reports proofs/sec.
+Per (curve stack, proving system, registrar size): build the tree, pick a
+random member, time prove and verify; row names follow the reference's
+``{curve}_{system}_{phase}_{n}`` convention, one JSON line each.
 
-The port has Groth16 on both stacks (``--stack pedersen381``, BLS12-381;
-``--stack pedersen761``, BW6-761): ``--systems marlin`` and
-``--universal`` are refused (exit 2).  Leaves
-are hashed on the host (``Member.hash``).  ``--device`` (default cuda)
-says where setup and the prover run; ``cpu`` runs the kernels' plain
-versions.
+- ``--systems groth16`` (default): the limb-major prover (``prove_lm``);
+  setup is timed too, or the key is loaded from ``--checkpoint-dir``.
+  ``--batch P`` times P proofs of members of one registrar through
+  ``prove_lm.prove_batch`` and reports proofs/sec.
+- ``--systems marlin``: universal setup plus index (row ``setup+index``),
+  then prove and verify (``snark.marlin``), per size.  With
+  ``--universal``, ONE SRS and ONE index at the largest size serve every
+  size, each registrar padded to the largest with default members (rows
+  ``marlin_universal``).  No Marlin SRS or index is saved.
+
+Both stacks: ``--stack pedersen381`` (BLS12-381) and ``--stack
+pedersen761`` (BW6-761).  Leaves are hashed on the host
+(``Member.hash``).  ``--device`` (default cuda) says where setup and the
+provers run; ``cpu`` runs the kernels' plain versions.
 
 Run: python -m zkmember_tpu_torch.app.bench_harness --sizes 16 --checkpoint-dir artifacts
+     python -m zkmember_tpu_torch.app.bench_harness --systems marlin --universal --sizes 4,16
 """
 
 from __future__ import annotations
@@ -29,8 +35,8 @@ import time
 from typing import NamedTuple
 
 from zkmember_tpu_torch.app import circuits as app
-from zkmember_tpu_torch.app.member import generate_members
-from zkmember_tpu_torch.snark import groth16, prove_lm
+from zkmember_tpu_torch.app.member import Member, generate_members
+from zkmember_tpu_torch.snark import groth16, marlin, prove_lm
 from zkmember_tpu_torch.utils import checkpoint
 from zkmember_tpu_torch.utils import rng as frng
 
@@ -47,11 +53,15 @@ class Registrar(NamedTuple):
     tree: object
 
 
-def _registrar(stack: str, n_members: int) -> Registrar:
-    """The mock registrar of `n_members`, its CRH parameters from the test rng."""
+def _registrar(stack: str, n_members: int, pad_to: int | None = None) -> Registrar:
+    """The mock registrar of `n_members`, its CRH parameters from the test
+    rng; with `pad_to` (Marlin's universal mode) padded to that many leaves
+    with the default member's digest."""
     cfg = app.get_config(stack)
     leaf_params, node_params = cfg.setup_params(frng.test_rng())
     digests = [m.hash(leaf_params) for m in generate_members(n_members)]
+    if pad_to is not None and len(digests) < pad_to:
+        digests += [Member.default().hash(leaf_params)] * (pad_to - len(digests))
     tree = app.new_membership_tree(leaf_params, node_params, digests)
     return Registrar(cfg, leaf_params, node_params, digests, tree)
 
@@ -66,9 +76,9 @@ def _circuit(reg: Registrar, idx: int):
     return circuit.generate_constraints()
 
 
-def _build(stack: str, n_members: int):
+def _build(stack: str, n_members: int, pad_to: int | None = None):
     """(constraint system, root, leaf) of a random member's proof."""
-    reg = _registrar(stack, n_members)
+    reg = _registrar(stack, n_members, pad_to)
     idx = random.Random(0).randrange(n_members)
     return _circuit(reg, idx), reg.tree.root(), reg.digests[idx]
 
@@ -161,6 +171,56 @@ def bench_groth16_batch(stack: str, n_members: int, batch: int, reps: int = 3, o
                     "median": round(_median(times), 4), "reps": reps}))
 
 
+def _nnz(cs) -> int:
+    """The largest non-zero count of A, B and C (Marlin's |K| before padding)."""
+    return max(sum(len(lc) for lc in m) for m in (cs.A, cs.B, cs.C))
+
+
+def bench_marlin(stack: str, sizes, universal: bool = False, reps: int = 3, out=print,
+                 device=None):
+    """Marlin grid, the reference's protocol (no warm-up): per size, setup
+    plus index timed once, then `reps` proves and `reps` verifies.  With
+    `universal`, one SRS and one index at the largest size serve every
+    size, each registrar padded to it with default members."""
+    curve = CURVES[stack]
+    rng = frng.test_rng()
+
+    def prove_and_verify(system, n, cs, root, leaf, ipk, ivk, each):
+        proof, times = _timed_reps(lambda: marlin.prove(ipk, cs, rng=rng, device=device), reps)
+        if each:
+            for t in times:
+                out(_row(curve, system, "prove", n, t, cs))
+        out(_row(curve, system, "prove", n, min(times), cs,
+                 stats={"min": round(min(times), 4),
+                        "median": round(_median(times), 4), "reps": reps}))
+        ok, vtimes = _timed_reps(lambda: marlin.verify(ivk, [root, leaf], proof), reps)
+        out(_row(curve, system, "verify", n, min(vtimes), cs, ok=ok,
+                 stats={"min": round(min(vtimes), 4),
+                        "median": round(_median(vtimes), 4), "reps": reps}))
+        if not ok:
+            raise RuntimeError(f"the {n}-member Marlin proof does not verify")
+
+    def setup_index(system, n, cs):
+        t0 = time.time()
+        pp = marlin.universal_setup(cs.num_constraints, cs.num_variables, _nnz(cs),
+                                    curve=curve, rng=rng, device=device)
+        ipk, ivk = marlin.index(pp, cs, device=device)
+        out(_row(curve, system, "setup+index", n, time.time() - t0, cs))
+        return ipk, ivk
+
+    if universal:
+        max_n = max(sizes)
+        ipk, ivk = setup_index("marlin_universal", max_n, _build(stack, max_n)[0])
+        for n in sizes:
+            cs, root, leaf = _build(stack, n, pad_to=max_n)
+            prove_and_verify("marlin_universal", n, cs, root, leaf, ipk, ivk, each=False)
+        return
+    for n in sizes:
+        cs, root, leaf = _build(stack, n)
+        ipk, ivk = setup_index("marlin", n, cs)
+        prove_and_verify("marlin", n, cs, root, leaf, ipk, ivk, each=True)
+
+
 def _row(curve, system, phase, n, seconds, cs, ok=None, note=None, stats=None):
     row = {
         "name": f"{curve}_{system}_{phase}_{n}",
@@ -192,27 +252,21 @@ def main(argv=None):
                     help="where setup and the prover run (default cuda; cpu runs the "
                          "kernels' plain versions)")
     args = ap.parse_args(argv)
-    systems = args.systems.split(",")
-    refused = []
-    if "marlin" in systems:
-        refused.append("--systems marlin (Marlin/KZG is not ported yet)")
-    if args.universal:
-        refused.append("--universal (Marlin's universal mode is not ported yet)")
-    if refused:
-        print("not ported yet: " + "; ".join(refused) + " (use zkmember_tpu.app.bench_harness)",
-              file=sys.stderr)
-        return 2
     sizes = [int(s) for s in args.sizes.split(",")]
     if args.batch:
         bench_groth16_batch(args.stack, sizes[0], args.batch, reps=args.reps,
                             checkpoint_dir=args.checkpoint_dir, device=args.device)
         return 0
-    for system in systems:
-        if system != "groth16":
+    for system in args.systems.split(","):
+        if system == "groth16":
+            bench_groth16(args.stack, sizes, reps=args.reps, checkpoint_dir=args.checkpoint_dir,
+                          device=args.device)
+        elif system == "marlin":
+            bench_marlin(args.stack, sizes, universal=args.universal, reps=args.reps,
+                         device=args.device)
+        else:
             print(f"unknown system {system}", file=sys.stderr)
             return 1
-        bench_groth16(args.stack, sizes, reps=args.reps, checkpoint_dir=args.checkpoint_dir,
-                      device=args.device)
     return 0
 
 
