@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--seed S]
         [--phases device,build,k2,k1,prove,k3,setup,prove_v1,cli,prove_batch,harness,
-                  scale,bw6,marlin[,profile]]
+                  hash,scale,bw6,marlin[,profile]]
 
 Phases (each raises on failure, so the script exits non-zero):
   device  the card's name and power limit (nvidia-smi)
@@ -62,6 +62,25 @@ Phases (each raises on failure, so the script exits non-zero):
   harness python -m zkmember_tpu_torch.app.bench_harness --sizes 16
           --checkpoint-dir artifacts --reps 3, then the same with --batch 4, in
           subprocesses: the rows parse, verify is true, artifacts/ is unchanged
+  hash    Pedersen hashing and Merkle levels on the card, both stacks
+          (pedersen381: Jubjub over BLS12-381 Fr, n = 16; pedersen761: n = 24):
+          Member.hash_batch over 1,024 members, then the membership tree
+          (eleven levels) with the device backend, once under checked_run
+          (K3 held against its plain version at every distinct shape: each
+          te_add wave of each round, the Fermat inverse's rows, from_mont)
+          and twice timed with the launch counts reset just before and read
+          just after (K3 only); a checked 64-leaf tree equal to the host
+          tree; at pedersen381 the 1,024-leaf tree and every member's digest
+          also on the host, timed and equal; at pedersen761 64 members
+          against host Member.hash; entry() on the card equal to
+          two_to_one_host; the 1,024-member proof in this process
+          (bench_harness._build on the card; setup at M = 2^15, the table
+          build and one proof under checked_run, so K3, K2, K1 and the
+          finish are held at every shape of that path; one more proof with
+          its launches counted; both verify, tampered ones do not); then
+          the bench harness's Groth16 grid at 1,024 members in a
+          subprocess (setup on the card, a proof that verifies); K3 timed at the widest te_add wave (5, 1024, 128,
+          n) and the inverse's (1024, n) rows
   scale   app.scale.run_depth(32): the depth-32 circuit (100,005 constraints,
           M = 2^17) traced, set up on the card, warmed, proved twice and
           verified, with the launches of each phase (counts reset at each
@@ -100,12 +119,13 @@ Phases (each raises on failure, so the script exits non-zero):
           and checked; then the bench harness's --systems marlin and
           --universal runs in subprocesses (rows parse, verify true)
   profile (optional, last) one more run of each prover path that ran
-          (prove, prove_batch at 8 proofs, scale, bw6, prove_v1, marlin) under
+          (prove, prove_batch at 8 proofs, scale, bw6, prove_v1, hash, marlin) under
           torch.profiler: the kernels' device time, the device's idle
           share, the top kernels
 
 Progress goes to stderr.  stdout ends with a prove line, a setup/prove_v1
-line, a prove_batch/harness/scale line, a BW6-761 line, a Marlin line, the
+line, a prove_batch/harness/scale line, a BW6-761 line, a hash line, a
+Marlin line, the
 card line (nvidia-smi), one JSON "kernels" line and, last, {"ok": true,
 "device": ...}.
 Imports nothing of JAX.  Needs one CUDA card; without one it exits 2.
@@ -151,6 +171,7 @@ MARLIN_BW6_MEMBERS = 4  # the BW6-761 Marlin run's registrar
 ERRS: dict = {}  # kernel -> largest limb difference from its plain version
 CHECKS: dict = {}  # kernel -> the shapes at which it was held against it
 MSM_TIMES: list = []  # K1 and the finish timed at each path's shapes, one entry a group
+MSM_REPS = 5  # calls a round when K1 or the finish is timed: each takes 2-170 ms
 
 
 def log(msg: str) -> None:
@@ -176,6 +197,22 @@ def cuda_ms(fn, reps: int = 20, rounds: int = 3, warmup: bool = True) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end) / reps)
     return statistics.median(times)
+
+
+def plain_timed(fn):
+    """fn()'s result and the milliseconds of that one call on the card
+    (between CUDA events): a plain version is run once, for both its check
+    and its time."""
+    import torch
+
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return out, start.elapsed_time(end)
 
 
 def device_ms(fn, reps: int = 20, rounds: int = 3) -> float:
@@ -542,8 +579,9 @@ def time_k1_finish(np_rng, ops, tab, W: int, P: int, R: int, B: int, where: str,
                    launches: dict, share: int = 1) -> None:
     """K1 on random digits (W, P, R, B) against the table `tab` (its rows
     gathered to R), and the finish on K1's output viewed as (W, P R, n, NT):
-    each held against its plain version on the same inputs, then timed
-    beside it; one MSM_TIMES entry each, with `launches[name] // share`
+    each held against its plain version on the same inputs (that one plain
+    call is also its time), then timed (MSM_REPS calls a round); one
+    MSM_TIMES entry each, with `launches[name] // share`
     (the launches of that path's timed run that fall to this group)."""
     import torch
 
@@ -558,8 +596,8 @@ def time_k1_finish(np_rng, ops, tab, W: int, P: int, R: int, B: int, where: str,
                           device="cuda")
     name = k1.variant("select_reduce", fp2, n)
     S = k1.select_reduce_cuda(ops, tab, dig)
-    err = _hold(name, f"{where} W={W} P={P} R={R} B={B}", S,
-                select_reduce_plain_sliced(ops, tab, dig))
+    want, plain_ms = plain_timed(lambda: select_reduce_plain_sliced(ops, tab, dig))
+    err = _hold(name, f"{where} W={W} P={P} R={R} B={B}", S, want)
     _, L = k1.tile_shape(B)
     NT = B // L
     nc = 2 if fp2 else 1
@@ -569,9 +607,8 @@ def time_k1_finish(np_rng, ops, tab, W: int, P: int, R: int, B: int, where: str,
     MSM_TIMES.append({
         "name": name, "group": group, "path": where, "launches": launches[name] // share,
         "shape": [W, P, R, B], "max_abs_err": err,
-        "ms": cuda_ms(lambda: k1.select_reduce_cuda(ops, tab, dig)),
-        "plain_ms": cuda_ms(lambda: select_reduce_plain_sliced(ops, tab, dig), reps=1,
-                            rounds=1, warmup=False),
+        "ms": cuda_ms(lambda: k1.select_reduce_cuda(ops, tab, dig), reps=MSM_REPS),
+        "plain_ms": plain_ms,
         "bound": _bound(16 * R * B * point_bytes + W * rows * B * 4
                         + W * rows * NT * point_bytes,
                         W * rows * (B - NT) * prods * imads_per_mul),
@@ -580,15 +617,14 @@ def time_k1_finish(np_rng, ops, tab, W: int, P: int, R: int, B: int, where: str,
     # window, then the join
     fname = k1.variant("msm_finish", fp2, n)
     Sv = tuple(straus._map_coord(lambda c: c.reshape(W, rows, n, NT), x) for x in S)
-    err = _hold(fname, f"{where} W={W} rows={rows} NT={NT}", fin.msm_finish_cuda(ops, Sv),
-                fin.msm_finish_plain(ops, Sv))
+    want, plain_ms = plain_timed(lambda: fin.msm_finish_plain(ops, Sv))
+    err = _hold(fname, f"{where} W={W} rows={rows} NT={NT}", fin.msm_finish_cuda(ops, Sv), want)
     chain = 5 * W  # dependent additions of one row's join
     MSM_TIMES.append({
         "name": fname, "group": group, "path": where, "launches": launches[fname] // share,
         "shape": [W, rows, NT], "max_abs_err": err,
-        "ms": cuda_ms(lambda: fin.msm_finish_cuda(ops, Sv)),
-        "plain_ms": cuda_ms(lambda: fin.msm_finish_plain(ops, Sv), reps=1, rounds=1,
-                            warmup=False),
+        "ms": cuda_ms(lambda: fin.msm_finish_cuda(ops, Sv), reps=MSM_REPS),
+        "plain_ms": plain_ms,
         "bound": _bound(W * rows * NT * point_bytes + rows * point_bytes,
                         (W * rows * (NT - 1) + chain * rows) * prods * imads_per_mul),
     })
@@ -603,9 +639,12 @@ def checked_run(run, what: str):
     field) held against its plain version on the same inputs, limb for
     limb: K2 and K3 at each operand shape, K1 at each digit grid and the
     finish at each window-sum shape; no K2 operand may be copied.  Its
-    launches are outside any counted run.  Returns run()'s result and the
-    launches of the run itself: K2's by (field, shape of a, shape of b),
-    K1's by digit shape, K3's by (field, shape of a, shape of b)."""
+    launches are outside any counted run.  Returns run()'s result, the
+    launches of the run itself (K2's by (field, shape of a, shape of b),
+    K1's by digit shape, K3's by (field, shape of a, shape of b)) and the
+    sorted (field, shape of a, shape of b) of the K3 calls whose operand
+    the wrapper copies before the launch (``field_cuda.launch_args`` says
+    so; the kernel reads every other operand in place)."""
     from zkmember_tpu_torch.fields import field_cuda, lm_cuda
     from zkmember_tpu_torch.msm import finish_cuda as fin, select_reduce_cuda as k1
 
@@ -615,6 +654,7 @@ def checked_run(run, what: str):
     counts: dict = {}  # (field, shape of a, shape of b) -> K2 launches of the run itself
     k1_shapes: dict = {}  # digit shape -> K1 launches of the run itself
     k3_counts: dict = {}  # (field, shape of a, shape of b) -> K3 launches of the run itself
+    k3_copied = set()  # (field, shape of a, shape of b) of K3 calls with a copied operand
     in_plain = [0]  # the plain K1 and finish run their products on K2 too: not counted
 
     def mont_mul_checked(spec, a, b):
@@ -634,6 +674,10 @@ def checked_run(run, what: str):
     def mont_mul_bm_checked(spec, a, b):
         out = mont_mul_bm_cuda(spec, a, b)
         key = ("bm", spec.name, tuple(a.shape), tuple(b.shape))
+        g = field_cuda.launch_args(spec.n, a.shape, a.stride(), a.data_ptr() % 16 == 0,
+                                   b.shape, b.stride(), b.data_ptr() % 16 == 0)
+        if g.copy_a or g.copy_b:
+            k3_copied.add(key[1:])
         if key not in seen:
             seen.add(key)
             _hold("mont_mul_bm", f"{what} {spec.name} {key[2]} x {key[3]}", out,
@@ -678,7 +722,7 @@ def checked_run(run, what: str):
     log(f"checked {what} in {time.time() - t:.1f}s: K2 and K3 bit-exact at {len(seen)} "
         f"distinct operand shapes, K1 limb-exact at {sorted(k1_shapes)} and the finish "
         "after each")
-    return result, counts, k1_shapes, k3_counts
+    return result, counts, k1_shapes, k3_counts, sorted(k3_copied)
 
 
 def _plane(np_rng, spec, shape):
@@ -748,7 +792,7 @@ def raw_launch(fn, prepare, spec, a, b):
 def _shape_row(r: dict) -> dict:
     """A kernel's entry of the kernels line at one more shape of a path."""
     row = {k: r[k] for k in ("path", "group", "shape", "operand_b", "launches", "max_abs_err",
-                             "ms", "plain_ms", "device_ms", "in_l2") if k in r}
+                             "ms", "plain_ms", "device_ms", "host_us", "in_l2") if k in r}
     return {**row, "bound_ms": r["bound"][0], "bound_by": r["bound"][1], "library_ms": None}
 
 
@@ -761,7 +805,8 @@ def _bound(nbytes: float, imads: float):
 def phase_profile():
     """One more run of each prover path that ran (prove_lm after `prove`, a
     batch of BATCH_TIMED after `prove_batch`, the depth-32 proof after
-    `scale`, the v1 prover after `prove_v1`, a Marlin proof after `marlin`)
+    `scale`, the v1 prover after `prove_v1`, the 1,024-member pedersen381
+    hash and tree after `hash`, a Marlin proof after `marlin`)
     under torch.profiler: the kernels' device time, the device's idle share
     against that path's timed run, and the kernels with the most device
     time.  Not part of the
@@ -788,6 +833,10 @@ def phase_profile():
         cs, _, rng = _membership_circuit(16)
         _profile("profile_v1", RESULTS["prove_v1_s"],
                  lambda: groth16.prove(STATE["pk_v1"], cs, rng=rng, device="cuda"))
+    if "hash" in STATE:
+        stack, leaf_params, node_params, members = STATE["hash"]
+        _profile("profile_hash", RESULTS["hash"][stack]["s"],
+                 lambda: _hash_tree_run(stack, leaf_params, node_params, members))
     if "marlin" in STATE:
         ipk, cs, state = STATE["marlin"]
         _profile("profile_marlin", RESULTS["marlin"]["prove_s"],
@@ -990,37 +1039,11 @@ def phase_setup():
 
 
 def checked_v1_proof(pk, cs, rng):
-    """One v1 proof in which the first K3 call at every distinct operand
-    shape is held against the plain version on the same inputs (its
-    launches are outside the counted proof)."""
-    from zkmember_tpu_torch.fields import field_cuda
+    """One v1 proof under ``checked_run``; no K3 operand may be copied."""
     from zkmember_tpu_torch.snark import groth16
 
-    k3 = field_cuda.mont_mul_bm_cuda
-    seen = set()
-    copied = []
-
-    def checked(spec, a, b):
-        out = k3(spec, a, b)
-        key = (spec.name, tuple(a.shape), tuple(b.shape))
-        if key not in seen:
-            seen.add(key)
-            g = field_cuda.launch_args(spec.n, a.shape, a.stride(), a.data_ptr() % 16 == 0,
-                                       b.shape, b.stride(), b.data_ptr() % 16 == 0)
-            if g.copy_a or g.copy_b:
-                copied.append((key, tuple(a.stride()), tuple(b.stride())))
-            _hold("mont_mul_bm", f"v1 proof {spec.name} {key[1]} x {key[2]}", out,
-                  mont_mul_bm_plain_rows(spec, a, b))
-        return out
-
-    field_cuda.mont_mul_bm_cuda = checked
-    try:
-        t = time.time()
-        proof = groth16.prove(pk, cs, rng=rng, device="cuda")
-    finally:
-        field_cuda.mont_mul_bm_cuda = k3
-    log(f"checked v1 proof in {time.time() - t:.1f}s: K3 bit-exact at {len(seen)} "
-        f"distinct operand shapes; operands copied before the launch at {copied or 'none'}")
+    proof, _, _, _, copied = checked_run(
+        lambda: groth16.prove(pk, cs, rng=rng, device="cuda"), "v1 proof")
     if copied:
         raise AssertionError(f"K3 copies an operand in the v1 proof: {copied}")
     return proof
@@ -1346,6 +1369,227 @@ def phase_harness():
     RESULTS["harness"] = out
     log(f"harness: grid rows {names} verified; --batch 4 at {batch[0]['proofs_per_sec']} "
         "proofs/s, verified; artifacts/ unchanged")
+
+
+HASH_MEMBERS = 1024  # the reference harness's largest registrar (DEFAULT_SIZES)
+HASH_SAMPLE = 64  # leaves of the checked tree; pedersen761's host sample
+
+
+def _hash_tree_run(stack: str, leaf_params, node_params, members):
+    """The slice's path as a user runs it: the members hashed in one batch on
+    the card, then the membership tree (the device backend above 64 leaves)."""
+    from zkmember_tpu_torch.app import circuits as app
+    from zkmember_tpu_torch.app.member import Member
+
+    digests = Member.hash_batch(leaf_params, members, "cuda")
+    return digests, app.new_membership_tree(leaf_params, node_params, digests, "cuda")
+
+
+def _leaf_bytes(node_params, digests):
+    nbytes = node_params.spec.n * 2
+    return [int(d).to_bytes(nbytes, "little") for d in digests]
+
+
+def _levels_equal(a, b, what: str) -> None:
+    import numpy as np
+
+    if len(a.levels) != len(b.levels) or not all(
+            x.dtype == y.dtype and np.array_equal(x, y) for x, y in zip(a.levels, b.levels)):
+        raise AssertionError(f"{what}: the device tree's levels differ from the host tree's")
+
+
+def _hash_proof_run() -> dict:
+    """The 1,024-member Groth16 proof in this process, as the harness builds
+    it (``bench_harness._build`` on the card): setup at M = 2^15, the table
+    build and one proof, each under ``checked_run`` (K3 in setup, K2 in the
+    tables and the H pipeline, K1 at its digit grids and the finish held
+    against their plain versions); then a proof with the launch counts reset
+    just before it and read just after, equal in its launches to the shape
+    table of the H pipeline; both proofs verify, a tampered one does not."""
+    from zkmember_tpu_torch import kernels
+    from zkmember_tpu_torch.app import bench_harness as bh
+    from zkmember_tpu_torch.snark import groth16, prove_lm
+    from zkmember_tpu_torch.utils import rng as frng
+
+    what = f"{HASH_MEMBERS}-member"
+    t = time.time()
+    cs, root, leaf = bh._build("pedersen381", HASH_MEMBERS, device="cuda")
+    build_s = time.time() - t
+    t = time.time()
+    (pk, _), _, _, k3_setup, copied = checked_run(
+        lambda: groth16.setup(cs, curve="bls12_381", rng=frng.test_rng(), device="cuda"),
+        f"{what} setup")
+    setup_s = time.time() - t
+    if copied:
+        raise AssertionError(f"K3 copies an operand in the {what} setup: {copied}")
+    keys = prove_lm.Groth16KeysLM(pk, "cuda")
+    _, k2_tables, *_ = checked_run(lambda: prove_lm.warm(keys), f"{what} table build")
+    rng = frng.test_rng(HASH_MEMBERS)
+    checked, k2_shapes, k1_shapes, *_ = checked_run(
+        lambda: prove_lm.prove(keys, cs, rng=rng), f"{what} proof")
+    if keys.M != 1 << 15 or k2_shapes != k2_proof_shapes(keys.M):
+        raise AssertionError(f"the {what} proof at M = {keys.M} ran K2 at {k2_shapes}, "
+                             f"not {k2_proof_shapes(keys.M)}")
+    kernels.reset_launches()
+    t = time.time()
+    proof = prove_lm.prove(keys, cs, rng=rng)
+    prove_s = time.time() - t
+    launches = {k: v for k, v in kernels.LAUNCHES.items() if v}
+    expect = {"mont_mul": sum(k2_proof_shapes(keys.M).values()), "select_reduce_fp": 1,
+              "select_reduce_fp2": 1, "msm_finish_fp": 2, "msm_finish_fp2": 2}
+    if launches != expect:
+        raise AssertionError(f"the {what} proof launched {launches}, not {expect}")
+    _holds_and_tamper_fails(keys.cfg, pk.vk, [root, leaf], checked, f"checked {what} proof")
+    _holds_and_tamper_fails(keys.cfg, pk.vk, [root, leaf], proof, f"{what} proof")
+    r = {"M": keys.M, "constraints": cs.num_constraints, "build_s": build_s,
+         "checked_setup_s": setup_s, "prove_s": prove_s, "launches": launches,
+         "setup_launches": {"mont_mul_bm": sum(k3_setup.values())},
+         "table_launches": {"mont_mul": sum(k2_tables.values())},
+         "k1_shapes": [list(k) for k in k1_shapes]}
+    log(f"{what} proof in this process: build {build_s:.1f}s, checked setup {setup_s:.1f}s "
+        f"(K3 {r['setup_launches']['mont_mul_bm']} launches), proof {prove_s:.3f}s with "
+        f"launches {launches}, M = {keys.M}, {cs.num_constraints} constraints")
+    return r
+
+
+def phase_hash(np_rng):
+    """Pedersen hashing and Merkle levels on the card, both stacks: a checked
+    run of the 1,024-member path and of a 64-leaf tree (K3 held against its
+    plain version at every distinct operand shape: every te_add wave of every
+    round, the inverse's rows, from_mont); the 1,024-member path timed twice
+    with the launch counts reset just before it and read just after (K3
+    only); at pedersen381 the same tree on the host, timed, equal level for
+    level, and hash_batch equal to host Member.hash for every member; at
+    pedersen761 both held against the host on 64 members and 64 leaves;
+    entry() on the card equal to two_to_one_host; the 1,024-member proof
+    in this process, checked (``_hash_proof_run``); the bench harness's
+    Groth16 grid at 1,024 members with setup on the card (M = 2^15); K3
+    timed at the widest te_add wave and at the inverse's rows."""
+    import numpy as np
+    import torch
+
+    from zkmember_tpu_torch import entry, kernels
+    from zkmember_tpu_torch.app import circuits as app
+    from zkmember_tpu_torch.app.member import generate_members
+    from zkmember_tpu_torch.fields import spec as fs
+    from zkmember_tpu_torch.hash import pedersen as ph
+    from zkmember_tpu_torch.merkle import tree as mt
+    from zkmember_tpu_torch.utils import rng as frng
+
+    out = {}
+    for stack in ("pedersen381", "pedersen761"):
+        r = out[stack] = {}
+        t = time.time()
+        leaf_params, node_params = app.get_config(stack).setup_params(frng.test_rng())
+        r["params_s"] = time.time() - t
+        members = generate_members(HASH_MEMBERS)
+        # the whole path under checked_run: K3 at its shapes and launches per
+        # shape, and where the wrapper copies an operand (the te_add waves'
+        # stacks are copies made by torch.stack, before the wrapper)
+        (digests, tree), _, _, k3_shapes, copied = checked_run(
+            lambda: _hash_tree_run(stack, leaf_params, node_params, members),
+            f"{stack} {HASH_MEMBERS}-member hash")
+        r["k3_copied_at"] = [list(map(list, c[1:])) for c in copied]
+        leaves = _leaf_bytes(node_params, digests[:HASH_SAMPLE])
+        checked_tree, *_ = checked_run(lambda: mt.MerkleTree(
+            leaf_params, node_params, leaves, backend="device", device="cuda"),
+            f"{stack} {HASH_SAMPLE}-leaf tree")
+        t = time.time()
+        host_tree = mt.MerkleTree(leaf_params, node_params, leaves, backend="host")
+        r["host_tree_64_s"] = time.time() - t
+        _levels_equal(checked_tree, host_tree, f"{stack} at {HASH_SAMPLE} leaves")
+        runs = []
+        for _ in range(2):  # a first and a second run of the path in this process
+            kernels.reset_launches()
+            t = time.time()
+            digests2, tree2 = _hash_tree_run(stack, leaf_params, node_params, members)
+            runs.append({"s": time.time() - t,
+                         "launches": {k: v for k, v in kernels.LAUNCHES.items() if v}})
+        for run in runs:
+            if set(run["launches"]) != {"mont_mul_bm"}:
+                raise AssertionError(f"{stack}: the hash path launched {run['launches']}")
+        if digests2 != digests:
+            raise AssertionError(f"{stack}: a second hash_batch gave other digests")
+        _levels_equal(tree2, tree, f"{stack}: a second device tree")
+        if stack == "pedersen381":  # the whole tree and every member on the host
+            t = time.time()
+            host_digests = [m.hash(leaf_params) for m in members]
+            r["host_hash_s"] = time.time() - t
+            t = time.time()
+            host_full = mt.MerkleTree(leaf_params, node_params, _leaf_bytes(node_params, digests),
+                                      backend="host")
+            r["host_tree_s"] = time.time() - t
+            _levels_equal(tree, host_full, f"{stack} at {HASH_MEMBERS} leaves")
+            if host_full.root() != tree.root():
+                raise AssertionError("the device root differs from the host root")
+            checked_members = HASH_MEMBERS
+        else:  # a sample: the host tree at 1,024 leaves takes about 50 s
+            host_digests = [m.hash(leaf_params) for m in members[:HASH_SAMPLE]]
+            checked_members = HASH_SAMPLE
+        if digests[:checked_members] != host_digests:
+            raise AssertionError(f"{stack}: hash_batch differs from host Member.hash")
+        if stack == "pedersen381":
+            STATE["hash"] = (stack, leaf_params, node_params, members)
+        r.update({"members": HASH_MEMBERS, "levels": len(tree.levels),
+                  "first_s": runs[0]["s"], "s": runs[1]["s"],
+                  "launches": runs[1]["launches"],
+                  "k3_shapes": [{"field": f, "shape": list(a), "operand_b": list(b),
+                                 "launches": n} for (f, a, b), n in k3_shapes.items()],
+                  "host_checked_members": checked_members})
+        log(f"hash {stack}: {HASH_MEMBERS} members + tree on the card {runs[0]['s']:.3f}s "
+            f"first, {runs[1]['s']:.3f}s second, launches {runs[1]['launches']}; "
+            + "".join(f"{k} {r[k]:.3f}s; " for k in ("params_s", "host_hash_s", "host_tree_s",
+                                                     "host_tree_64_s") if k in r)
+            + f"K3 at {len(k3_shapes)} shapes, operands copied by the wrapper at "
+            f"{r['k3_copied_at'] or 'none'}; equal to the host")
+
+    # entry(): eight two-to-one hashes on the card against the host
+    fn, (left, right) = entry.entry()
+    got = fs.limbs_to_ints(fn(left, right).cpu().numpy())
+    node_params = entry._params()[2]
+    nbytes = node_params.spec.n * 2
+    want = [ph.two_to_one_host(node_params, a.to_bytes(nbytes, "little"),
+                               b.to_bytes(nbytes, "little")).v
+            for a, b in zip(fs.limbs_to_ints(left.cpu().numpy()),
+                            fs.limbs_to_ints(right.cpu().numpy()))]
+    if got != want:
+        raise AssertionError("entry() on the card differs from two_to_one_host")
+    out["entry"] = {"batch": len(got), "equal_to_host": True}
+
+    out["proof"] = _hash_proof_run()
+
+    # the harness at the reference's largest registrar, setup on the card
+    t = time.time()
+    rows = [json.loads(line) for line in _run_module(
+        "zkmember_tpu_torch.app.bench_harness",
+        ["--sizes", str(HASH_MEMBERS), "--systems", "groth16", "--reps", "1"]).splitlines()
+        if line.startswith("{")]
+    names = [row["name"] for row in rows]
+    want_names = [f"bls12_381_groth16_{p}_{HASH_MEMBERS}" for p in
+                  ("setup", "prove", "prove", "verify")]
+    if names != want_names or rows[-1].get("verified") is not True:
+        raise AssertionError(f"the {HASH_MEMBERS}-member harness rows {rows} are not "
+                             f"{want_names} with a verified proof")
+    out["harness"] = {"rows": rows, "wall_s": time.time() - t}
+    log(f"harness at {HASH_MEMBERS} members: rows {names}, verified, "
+        f"{out['harness']['wall_s']:.1f}s")
+
+    # K3 at the widest te_add wave (the leaf hash's first round at 1,024
+    # rows) and at the Fermat inverse's rows, both stacks' fields
+    widest = (5, HASH_MEMBERS, 128)
+    out["k3"] = [dict(time_k3(np_rng, spec, widest + (spec.n,), widest + (spec.n,)),
+                      path=f"hash {stack} wave")
+                 for stack, spec in (("pedersen381", fs.BLS_FR), ("pedersen761", fs.BW6_FR))]
+    out["k3"] += [dict(time_k3(np_rng, spec, (HASH_MEMBERS, spec.n), (HASH_MEMBERS, spec.n)),
+                       path=f"hash {stack} inverse")
+                  for stack, spec in (("pedersen381", fs.BLS_FR), ("pedersen761", fs.BW6_FR))]
+    for k in out["k3"]:
+        key = (k["field"], tuple(k["shape"]), tuple(k["operand_b"]))
+        stack = k["path"].split()[1]
+        k["launches"] = sum(s["launches"] for s in out[stack]["k3_shapes"]
+                            if (s["field"], tuple(s["shape"]), tuple(s["operand_b"])) == key)
+    torch.cuda.synchronize()
+    RESULTS["hash"] = out
 
 
 def phase_scale(np_rng):
@@ -1703,14 +1947,14 @@ def _marlin_checked_setup_index(stack: str, pp, ivk, cs, what: str):
     from zkmember_tpu_torch.snark import marlin
     from zkmember_tpu_torch.utils import rng as frng
 
-    fresh, _, _, k3_setup = checked_run(lambda: marlin.universal_setup(
+    fresh, _, _, k3_setup, _ = checked_run(lambda: marlin.universal_setup(
         cs.num_constraints, cs.num_variables, bench_harness._nnz(cs),
         curve=bench_harness.CURVES[stack], rng=frng.test_rng(), device="cuda"),
         f"{what} setup")
     for a, b in ((fresh.powers.x, pp.powers.x), (fresh.powers.y, pp.powers.y)):
         if not bool((a == b).all()):
             raise AssertionError(f"the checked {what} setup gives another SRS")
-    (_, ivk2), _, k1_index, _ = checked_run(lambda: marlin.index(fresh, cs, device="cuda"),
+    (_, ivk2), _, k1_index, *_ = checked_run(lambda: marlin.index(fresh, cs, device="cuda"),
                                             f"{what} index")
     for name in marlin.MATRICES:
         got = [(c.c, c.shifted) for c in ivk2.matrix_comms[name]]
@@ -1772,7 +2016,7 @@ def phase_marlin(np_rng):
     # the matrix commitments' rows), then a proof
     k3_setup, out["index_k1_shapes"] = _marlin_checked_setup_index(
         "pedersen381", pp, ivk, cs, "marlin")
-    checked, k2_shapes, k1_shapes, _ = checked_run(
+    checked, k2_shapes, k1_shapes, *_ = checked_run(
         lambda: marlin.prove(ipk, cs, rng=_rng_at(state), device="cuda"), "marlin proof")
     if _marlin_parts(checked) != _marlin_parts(proof):
         raise AssertionError("the checked Marlin proof differs from the timed one")
@@ -1809,7 +2053,7 @@ def phase_marlin(np_rng):
     bk3, bw6["index_k1_shapes"] = _marlin_checked_setup_index(
         "pedersen761", bpp, bivk, bcs, "bw6 marlin")
     bw6["k3_setup_shapes"] = [[f, list(a), list(b), v] for (f, a, b), v in bk3.items()]
-    bchecked, _, bk1, _ = checked_run(
+    bchecked, _, bk1, *_ = checked_run(
         lambda: marlin.prove(bipk, bcs, rng=_rng_at(bstate), device="cuda"), "bw6 marlin proof")
     if _marlin_parts(bchecked) != _marlin_parts(bproof):
         raise AssertionError("the checked BW6-761 Marlin proof differs from the first")
@@ -1847,7 +2091,15 @@ def phase_marlin(np_rng):
 
 
 PHASES = ("device", "build", "k2", "k1", "prove", "k3", "setup", "prove_v1", "cli",
-          "prove_batch", "harness", "scale", "bw6", "marlin")
+          "prove_batch", "harness", "hash", "scale", "bw6", "marlin")
+
+
+def hash_line() -> str:
+    """The hash phase's stdout line."""
+    return json.dumps({
+        "metric": "pedersen_hash_merkle_1024members", **RESULTS["hash"],
+        "device": RESULTS["device"], "nvidia_smi": RESULTS["smi"],
+    })
 
 
 def marlin_line() -> str:
@@ -1901,6 +2153,8 @@ def main() -> int:
             phase_prove_batch(np_rng)
         elif name == "harness":
             phase_harness()
+        elif name == "hash":
+            phase_hash(np_rng)
         elif name == "scale":
             phase_scale(np_rng)
         elif name == "bw6":
@@ -1942,6 +2196,7 @@ def main() -> int:
             "metric": "groth16_bw6_761_pedersen761_16members", **RESULTS["bw6"],
             "device": RESULTS["device"], "nvidia_smi": RESULTS["smi"],
         }))
+        print(hash_line())
         print(marlin_line())
         print(RESULTS["smi"])
         sources = {
@@ -1998,17 +2253,26 @@ def main() -> int:
                 row["scale_launches"] = RESULTS["scale"]["setup_launches"][name]
                 more = [dict(RESULTS["mont_mul_bm_bw6"], path="bw6 v1 proof",
                              launches=RESULTS["bw6"]["launches_v1"][name]),
-                        RESULTS["marlin"]["mont_mul_bm"]]
+                        RESULTS["marlin"]["mont_mul_bm"]] + RESULTS["hash"]["k3"]
+                row["hash_launches"] = {s: RESULTS["hash"][s]["launches"][name]
+                                        for s in ("pedersen381", "pedersen761")}
             row["shapes"] = [_shape_row(m) for m in more]
+            proof_1024 = RESULTS["hash"]["proof"]  # the in-process 1,024-member proof
+            for key in ("launches", "setup_launches", "table_launches"):
+                if name in proof_1024[key]:
+                    row[f"proof_1024_{key}"] = proof_1024[key][name]
             rows.append(row)
         print(json.dumps({"kernels": rows}))
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count(),
         }}))
-    elif "marlin" in RESULTS:  # the phase alone: its line and the kernel times
-        print(marlin_line())
-        print(json.dumps({"msm_times": MSM_TIMES}))
+    else:  # a phase alone: its line (and the kernel times)
+        if "hash" in RESULTS:
+            print(hash_line())
+        if "marlin" in RESULTS:
+            print(marlin_line())
+            print(json.dumps({"msm_times": MSM_TIMES}))
     log("done")
     return 0
 

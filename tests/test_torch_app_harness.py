@@ -81,10 +81,10 @@ def test_registrar_pads_to_the_universal_size(params):
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(member, "_now", lambda: fixed)
         mp.setattr(jmember, "_now", lambda: fixed)
-        reg = bench_harness._registrar("pedersen381", 2, pad_to=4)
+        reg = bench_harness._registrar("pedersen381", 2, pad_to=4, device="cpu")
         pad = jmember.Member.default().hash(jlp)
         want = [m.hash(jlp) for m in jmember.generate_members(2)] + [pad, pad]
-        unpadded = bench_harness._registrar("pedersen381", 2, pad_to=2).digests
+        unpadded = bench_harness._registrar("pedersen381", 2, pad_to=2, device="cpu").digests
     assert reg.digests == want and unpadded == want[:2]
     assert reg.tree.root() == japp.new_membership_tree(jlp, jnp_, want).root()
 
@@ -116,7 +116,8 @@ def test_bench_marlin_rows_match_reference(monkeypatch):
     cs, root, leaf = _two_input_circuit(ConstraintSystem, g, bls)
     built = []
     monkeypatch.setattr(bench_harness, "_build",
-                        lambda stack, n, pad_to=None: built.append((n, pad_to)) or (cs, root, leaf))
+                        lambda stack, n, pad_to=None, device=None:
+                        built.append((n, pad_to, device)) or (cs, root, leaf))
     made = {}
 
     def keep(name, fn):
@@ -130,7 +131,7 @@ def test_bench_marlin_rows_match_reference(monkeypatch):
     rows = []
     bench_harness.bench_marlin("pedersen381", [2], universal=True, reps=1, out=rows.append,
                                device="cpu")
-    assert built == [(2, None), (2, 2)]
+    assert built == [(2, None, "cpu"), (2, 2, "cpu")]
     assert made["universal_setup"].max_degree == marlin.max_degree_bound(
         cs.num_constraints, cs.num_variables, bench_harness._nnz(cs))
     for name in ("universal_setup", "index", "prove"):

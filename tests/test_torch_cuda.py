@@ -465,3 +465,24 @@ def test_marlin_toy_proof_on_the_card_equals_the_plain_one():
     assert parts[0] == parts[1]
     assert marlin.verify(ivk, [out_val], proof)
     assert not marlin.verify(ivk, [(out_val + 1) % bls.R], proof)
+
+
+def test_device_merkle_tree_on_the_card_equals_the_cpu_one():
+    """A 64-leaf pedersen381 tree hashed on the card (every product on K3)
+    equals the same tree hashed on the CPU (plain K3), level for level, and
+    the card's hash launched K3."""
+    _need_card()
+    from zkmember_tpu_torch.app import circuits as app
+    from zkmember_tpu_torch.merkle import tree
+    from zkmember_tpu_torch.utils import rng as frng
+
+    leaf, node = app.get_config("pedersen381").setup_params(frng.test_rng())
+    rng = np.random.default_rng(5)
+    leaves = [bytes(rng.integers(0, 256, size=32, dtype=np.uint8)) for _ in range(64)]
+    before = kernels.LAUNCHES["mont_mul_bm"]
+    card = tree.MerkleTree(leaf, node, leaves, backend="device", device="cuda")
+    assert kernels.LAUNCHES["mont_mul_bm"] > before
+    cpu = tree.MerkleTree(leaf, node, leaves, backend="device", device="cpu")
+    assert len(card.levels) == len(cpu.levels) == 7
+    for a, b in zip(card.levels, cpu.levels):
+        assert a.dtype == b.dtype and np.array_equal(a, b)

@@ -4,7 +4,8 @@ A fresh interpreter imports zkmember_tpu_torch, loads a key from a
 checkpoint and proves the toy cube circuit on the CPU with the limb-major
 prover, runs the port's own setup and v1 prover on it, commits to a
 polynomial with the port's KZG, loads the CLI, the bench harness and
-Marlin, and then reports what it imported.  An AST scan checks every
+Marlin, hashes a 4-leaf Merkle tree with the device hash on the CPU (and
+loads ``entry``), and then reports what it imported.  An AST scan checks every
 module of the package (KZG, Marlin, the transcript and the polynomial
 helpers among them) and chip_smoke.py.
 """
@@ -42,7 +43,17 @@ from zkmember_tpu_torch.snark import kzg, marlin, transcript
 from zkmember_tpu_torch.utils import poly
 pp = kzg.setup(8, rng=frng.test_rng(), device="cpu")
 v, opening = kzg.open_at(pp, [1, 2, 3], 5)
+from zkmember_tpu_torch import entry
+from zkmember_tpu_torch.app import circuits as app
+from zkmember_tpu_torch.hash import pedersen
+from zkmember_tpu_torch.merkle import tree
+leaf_params, node_params = app.get_config("pedersen381").setup_params(frng.test_rng())
+leaves = [bytes([i]) * 32 for i in range(4)]
+dev_tree = tree.MerkleTree(leaf_params, node_params, leaves, backend="device", device="cpu")
+host_tree = tree.MerkleTree(leaf_params, node_params, leaves, backend="host")
 print(json.dumps({
+    "tree": dev_tree.root() == host_tree.root() and callable(entry.entry)
+            and callable(pedersen.hash_bits_device),
     "kzg": kzg.check(pp, kzg.commit(pp, [1, 2, 3]), 5, v, opening),
     "ok": groth16.verify(keys.pk.vk, [27], proof),
     "bad": groth16.verify(keys.pk.vk, [28], proof),
@@ -82,7 +93,7 @@ def test_port_proves_without_jax(tmp_path):
     )
     assert res.returncode == 0, res.stderr[-4000:]
     got = json.loads(res.stdout.strip().splitlines()[-1])
-    assert got == {"kzg": True, "ok": True, "bad": False, "ok_v1": True, "bad_v1": False,
+    assert got == {"tree": True, "kzg": True, "ok": True, "bad": False, "ok_v1": True, "bad_v1": False,
                    "modules": []}
 
 

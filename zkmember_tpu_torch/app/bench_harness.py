@@ -16,9 +16,10 @@ random member, time prove and verify; row names follow the reference's
   ``marlin_universal``).  No Marlin SRS or index is saved.
 
 Both stacks: ``--stack pedersen381`` (BLS12-381) and ``--stack
-pedersen761`` (BW6-761).  Leaves are hashed on the host
-(``Member.hash``).  ``--device`` (default cuda) says where setup and the
-provers run; ``cpu`` runs the kernels' plain versions.
+pedersen761`` (BW6-761).  ``--device`` (default cuda) says where the
+members are hashed (``Member.hash_batch``), the tree is built (on the
+device above 64 leaves), and setup and the provers run; ``cpu`` runs the
+kernels' plain versions.
 
 Run: python -m zkmember_tpu_torch.app.bench_harness --sizes 16 --checkpoint-dir artifacts
      python -m zkmember_tpu_torch.app.bench_harness --systems marlin --universal --sizes 4,16
@@ -53,16 +54,19 @@ class Registrar(NamedTuple):
     tree: object
 
 
-def _registrar(stack: str, n_members: int, pad_to: int | None = None) -> Registrar:
+def _registrar(stack: str, n_members: int, pad_to: int | None = None,
+               device=None) -> Registrar:
     """The mock registrar of `n_members`, its CRH parameters from the test
-    rng; with `pad_to` (Marlin's universal mode) padded to that many leaves
-    with the default member's digest."""
+    rng, its members hashed in one batch and its tree built on `device`
+    (the card unless "cpu"; the tree hashes there above 64 leaves); with
+    `pad_to` (Marlin's universal mode) padded to that many leaves with the
+    default member's digest, a host hash as in the reference."""
     cfg = app.get_config(stack)
     leaf_params, node_params = cfg.setup_params(frng.test_rng())
-    digests = [m.hash(leaf_params) for m in generate_members(n_members)]
+    digests = Member.hash_batch(leaf_params, generate_members(n_members), device)
     if pad_to is not None and len(digests) < pad_to:
         digests += [Member.default().hash(leaf_params)] * (pad_to - len(digests))
-    tree = app.new_membership_tree(leaf_params, node_params, digests)
+    tree = app.new_membership_tree(leaf_params, node_params, digests, device)
     return Registrar(cfg, leaf_params, node_params, digests, tree)
 
 
@@ -76,9 +80,9 @@ def _circuit(reg: Registrar, idx: int):
     return circuit.generate_constraints()
 
 
-def _build(stack: str, n_members: int, pad_to: int | None = None):
+def _build(stack: str, n_members: int, pad_to: int | None = None, device=None):
     """(constraint system, root, leaf) of a random member's proof."""
-    reg = _registrar(stack, n_members, pad_to)
+    reg = _registrar(stack, n_members, pad_to, device)
     idx = random.Random(0).randrange(n_members)
     return _circuit(reg, idx), reg.tree.root(), reg.digests[idx]
 
@@ -128,7 +132,7 @@ def bench_groth16(stack: str, sizes, reps: int = 5, out=print, checkpoint_dir=No
     curve = CURVES[stack]
     rng = frng.test_rng()
     for n in sizes:
-        cs, root, leaf = _build(stack, n)
+        cs, root, leaf = _build(stack, n, device=device)
         keys = _keys(cs, curve, n, rng, device, checkpoint_dir, out)
         prove_lm.warm(keys)
         prove_lm.prove(keys, cs, rng=rng)  # warm-up
@@ -155,7 +159,7 @@ def bench_groth16_batch(stack: str, n_members: int, batch: int, reps: int = 3, o
     and its Straus tables."""
     curve = CURVES[stack]
     rng = frng.test_rng()
-    reg = _registrar(stack, n_members)
+    reg = _registrar(stack, n_members, device=device)
     idxs = [random.Random(i).randrange(n_members) for i in range(batch)]
     cs_list = [_circuit(reg, idx) for idx in idxs]
     keys = _keys(cs_list[0], curve, n_members, rng, device, checkpoint_dir, None)
@@ -210,13 +214,13 @@ def bench_marlin(stack: str, sizes, universal: bool = False, reps: int = 3, out=
 
     if universal:
         max_n = max(sizes)
-        ipk, ivk = setup_index("marlin_universal", max_n, _build(stack, max_n)[0])
+        ipk, ivk = setup_index("marlin_universal", max_n, _build(stack, max_n, device=device)[0])
         for n in sizes:
-            cs, root, leaf = _build(stack, n, pad_to=max_n)
+            cs, root, leaf = _build(stack, n, pad_to=max_n, device=device)
             prove_and_verify("marlin_universal", n, cs, root, leaf, ipk, ivk, each=False)
         return
     for n in sizes:
-        cs, root, leaf = _build(stack, n)
+        cs, root, leaf = _build(stack, n, device=device)
         ipk, ivk = setup_index("marlin", n, cs)
         prove_and_verify("marlin", n, cs, root, leaf, ipk, ivk, each=True)
 
@@ -249,8 +253,8 @@ def main(argv=None):
                     help="batched-proving throughput mode: prove this many "
                     "members of one registrar via prove_batch (proofs/sec)")
     ap.add_argument("--device", default="cuda",
-                    help="where setup and the prover run (default cuda; cpu runs the "
-                         "kernels' plain versions)")
+                    help="where hashing, setup and the prover run (default cuda; cpu "
+                         "runs the kernels' plain versions)")
     args = ap.parse_args(argv)
     sizes = [int(s) for s in args.sizes.split(",")]
     if args.batch:

@@ -104,16 +104,19 @@ def new_membership_tree(
     leaf_params: ph.PedersenParams,
     node_params: ph.PedersenParams,
     leaf_digests: list[int],
+    device=None,
 ) -> MerkleTree:
     """Build the membership tree from member digests (common.rs:80-87).
 
     App-level leaves are the member digests; the tree hashes their byte
     encodings again with LeafHash, exactly like the reference's MerkleTree.
+    The tree's "auto" backend hashes above 64 leaves on `device` (the card
+    unless the caller passes "cpu").
     """
     digests = clean_membership_list(leaf_params, leaf_digests)
     nbytes = node_params.spec.n * 2  # digest byte width = limb width
     leaf_bytes = [int(d).to_bytes(nbytes, "little") for d in digests]
-    return MerkleTree(leaf_params, node_params, leaf_bytes)
+    return MerkleTree(leaf_params, node_params, leaf_bytes, device=device)
 
 
 # ---------------------------------------------------------------------------

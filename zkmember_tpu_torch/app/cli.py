@@ -6,7 +6,7 @@ verify -> parse hex root, leaf, proof and vk and run the pairing check.
 The same commands and output as the reference's CLI, for both stacks
 (``--stack pedersen381``, BLS12-381, the default; ``--stack pedersen761``,
 BW6-761), plus ``--device`` (default ``cuda``): ``prove`` runs setup and
-the prover there.  The
+the prover there, and a tree above 64 leaves hashes there.  The
 members live in a JSON state file (``ZKMEMBER_STATE``, default
 ``zkmember_state.json``).
 
@@ -62,9 +62,11 @@ def _params(curve_stack: str):
     return cfg, leaf_params, node_params
 
 
-def _build_tree(leaf_params, node_params, members):
+def _build_tree(leaf_params, node_params, members, device):
+    """Member leaves are host hashes, as in the reference's CLI; the tree
+    hashes above 64 leaves on `device`."""
     digests = [m.hash(leaf_params) for m in members]
-    return app.new_membership_tree(leaf_params, node_params, digests), digests
+    return app.new_membership_tree(leaf_params, node_params, digests, device), digests
 
 
 def cmd_register(args):
@@ -72,7 +74,7 @@ def cmd_register(args):
     members.append(Member.new(args.id, args.email))
     _save_state(members)
     _, leaf_params, node_params = _params(args.stack)
-    tree, _ = _build_tree(leaf_params, node_params, members)
+    tree, _ = _build_tree(leaf_params, node_params, members, args.device)
     print(f"{BLUE}Number of Members: {len(members)}{RESET}")
     print(f"{GREEN}Merkle Root: {tree.root():#066x}{RESET}")
 
@@ -83,7 +85,7 @@ def cmd_root(args):
         print("no members registered", file=sys.stderr)
         return 1
     _, leaf_params, node_params = _params(args.stack)
-    tree, _ = _build_tree(leaf_params, node_params, members)
+    tree, _ = _build_tree(leaf_params, node_params, members, args.device)
     print(f"{tree.root():#x}")
 
 
@@ -94,7 +96,7 @@ def cmd_prove(args):
         print(f"member id {args.id!r} not found", file=sys.stderr)
         return 1
     cfg, leaf_params, node_params = _params(args.stack)
-    tree, digests = _build_tree(leaf_params, node_params, members)
+    tree, digests = _build_tree(leaf_params, node_params, members, args.device)
     root = tree.root()
     circuit = app.MerkleTreeCircuit(
         config=cfg, leaf_params=leaf_params, node_params=node_params,
@@ -149,8 +151,8 @@ def main(argv=None):
     ap = argparse.ArgumentParser(prog="zkmember")
     ap.add_argument("--stack", default="pedersen381", choices=sorted(CURVES))
     ap.add_argument("--device", default="cuda",
-                    help="where setup and the prover run (default cuda; cpu runs the "
-                         "kernels' plain versions)")
+                    help="where setup, the prover and a tree above 64 leaves run "
+                         "(default cuda; cpu runs the kernels' plain versions)")
     sub = ap.add_subparsers(dest="cmd", required=True)
     p = sub.add_parser("register")
     p.add_argument("--id", required=True)

@@ -65,6 +65,23 @@ class Member:
 
         return ph.hash_bytes_host(leaf_params, self.to_bytes()).v
 
+    @staticmethod
+    def hash_batch(leaf_params, members: list["Member"], device=None) -> list[int]:
+        """[m.hash(leaf_params) for m in members] as ONE tiled device hash
+        (``hash.pedersen.hash_bits_tiled``) on ``device.resolve(device)``:
+        the card unless the caller passes "cpu"."""
+        import numpy as np
+
+        from zkmember_tpu_torch import device as devices
+        from zkmember_tpu_torch.fields import spec as fs
+        from zkmember_tpu_torch.hash import pedersen as ph
+
+        if not members:
+            return []
+        cap = leaf_params.window.capacity_bits
+        bits = np.stack([ph.bytes_to_bits(m.to_bytes(), cap) for m in members])
+        return fs.limbs_to_ints(ph.hash_bits_tiled(leaf_params, bits, devices.resolve(device)))
+
     # -- serde-JSON mirror (member.rs:90-150) -------------------------------
     def to_json(self) -> str:
         return json.dumps(

@@ -1,16 +1,23 @@
-"""Projective short-Weierstrass ops on limb-major planes (counterpart of the
-projective subset of zkmember_tpu.curves.device).
+"""Curve ops over device field elements (counterpart of the projective
+short-Weierstrass subset and the twisted-Edwards ops of
+zkmember_tpu.curves.device).
 
-Points are (X, Y, Z) coordinate tuples whose entries are field elements of
-the ops' field vtable: limb-major planes (``fields.lm.FpOpsLM`` or
-``Fp2OpsLM``) or batch-major rows (``fields.device.FpOps`` or ``Fp2Ops``),
-which share one stacked interface; the identity is (0, 1, 0).  Additions
-use the complete RCB a = 0 law, so doubling is addition and no input is
-exceptional.
+Short Weierstrass: points are (X, Y, Z) coordinate tuples whose entries are
+field elements of the ops' field vtable: limb-major planes
+(``fields.lm.FpOpsLM`` or ``Fp2OpsLM``) or batch-major rows
+(``fields.device.FpOps`` or ``Fp2Ops``), which share one stacked interface;
+the identity is (0, 1, 0).  Additions use the complete RCB a = 0 law, so
+doubling is addition and no input is exceptional.
+
+Twisted Edwards (a x^2 + y^2 = 1 + d x^2 y^2): extended coordinates
+(X, Y, T, Z) with x = X/Z, y = Y/Z, T = XY/Z over batch-major rows; the
+identity is (0, 1, 0, 1).  The unified addition issues the reference's
+three product waves (5 + 2 + 4 rows) as three stacked K3 launches.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -166,3 +173,100 @@ def _leading0(c):
     while isinstance(c, tuple):
         c = c[0]
     return c.shape[0]
+
+
+# ---------------------------------------------------------------------------
+# twisted Edwards, extended coordinates, unified complete addition
+# ---------------------------------------------------------------------------
+
+
+class TEConsts:
+    """Curve constants a, d as Montgomery-form (n,) limb vectors."""
+
+    def __init__(self, a_mont, d_mont):
+        self.a = np.asarray(a_mont)
+        self.d = np.asarray(d_mont)
+
+
+def te_identity(F, shape=()):
+    return (F.zeros(shape), F.ones(shape), F.zeros(shape), F.ones(shape))
+
+
+def _row(F, q, shape):
+    """A constant (n,) or (..., n) operand expanded over `shape`."""
+    if isinstance(q, torch.Tensor):
+        return q.to(F.device).expand(tuple(shape) + (q.shape[-1],))
+    return F.broadcast_const(q, shape)
+
+
+def te_add(F, C: TEConsts, P, Q):
+    """Unified extended addition (add-2008-hwcd), complete for our curves:
+    three stacked product waves of 5, 2 and 4 rows, as in the reference.
+    The stacks copy their operands (strided views included) into one
+    contiguous (k, ..., n) tensor; K3 reads that in place."""
+    X1, Y1, T1, Z1 = P
+    X2, Y2, T2, Z2 = Q
+    shape = F.batch_shape(X1)
+    a = F.broadcast_const(C.a, shape)
+    d = F.broadcast_const(C.d, shape)
+    A, B, D, Emul, dT1 = F.mul_many(
+        [(X1, X2), (Y1, Y2), (Z1, Z2), (F.add(X1, Y1), F.add(X2, Y2)), (d, T1)]
+    )
+    Cc, aA = F.mul_many([(dT1, T2), (a, A)])
+    E = F.sub(F.sub(Emul, A), B)
+    Fv = F.sub(D, Cc)
+    G = F.add(D, Cc)
+    H = F.sub(B, aA)
+    return tuple(F.mul_many([(E, Fv), (G, H), (E, H), (Fv, G)]))
+
+
+def te_add_affine_const(F, C: TEConsts, P, qx_mont, qy_mont):
+    """P + Q for a constant affine Q ((n,) or (..., n) Montgomery limbs,
+    numpy or a tensor) broadcast over the batch: Z2 = 1, T2 = qx qy.  Three
+    stacked product waves (5 + 2 + 4 rows)."""
+    X1, Y1, T1, Z1 = P
+    shape = F.batch_shape(X1)
+    qx, qy = _row(F, qx_mont, shape), _row(F, qy_mont, shape)
+    a = F.broadcast_const(C.a, shape)
+    d = F.broadcast_const(C.d, shape)
+    A, B, T2, Emul, dT1 = F.mul_many(
+        [(X1, qx), (Y1, qy), (qx, qy), (F.add(X1, Y1), F.add(qx, qy)), (d, T1)]
+    )
+    Cc, aA = F.mul_many([(dT1, T2), (a, A)])
+    E = F.sub(F.sub(Emul, A), B)
+    Fv = F.sub(Z1, Cc)
+    G = F.add(Z1, Cc)
+    H = F.sub(B, aA)
+    return tuple(F.mul_many([(E, Fv), (G, H), (E, H), (Fv, G)]))
+
+
+def te_cond_add_affine(F, C: TEConsts, P, qx_mont, qy_mont, bit):
+    """P + Q if bit else P (constant affine Q): the per-bit Pedersen step."""
+    S = te_add_affine_const(F, C, P, qx_mont, qy_mont)
+    m = bit != 0
+    return tuple(F.select(m, s, p) for s, p in zip(S, P))
+
+
+def te_double(F, C: TEConsts, P):
+    return te_add(F, C, P, P)
+
+
+def te_scalar_mul(F, C: TEConsts, scalar_bits, P):
+    """Batched double-and-add over extended TE points; scalar_bits is
+    (..., nbits), MSB first (the reference's lax.scan as a Python loop)."""
+    acc = te_identity(F, F.batch_shape(P[0]))
+    for k in range(scalar_bits.shape[-1]):
+        acc = te_double(F, C, acc)
+        S = te_add(F, C, acc, P)
+        m = scalar_bits[..., k] != 0
+        acc = tuple(F.select(m, s, a) for s, a in zip(S, acc))
+    return acc
+
+
+def te_to_affine(F, P):
+    """(x, y) in Montgomery form: one Fermat inversion of Z for the batch,
+    then both products in one stacked launch."""
+    X, Y, _, Z = P
+    zinv = F.inv(Z)
+    x, y = F.mul_many([(X, zinv), (Y, zinv)])
+    return x, y

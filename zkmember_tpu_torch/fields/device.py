@@ -174,6 +174,10 @@ class FpOps:
     def batch_shape(self, a):
         return tuple(a.shape[:-1])
 
+    def broadcast_const(self, const_limbs, shape):
+        """A Montgomery limb vector expanded (not copied) over `shape`."""
+        return _const(np.asarray(const_limbs), self.device).expand(tuple(shape) + (self.spec.n,))
+
     def const(self, v: int):
         """A single Montgomery-form constant as an (n,) row (broadcasts)."""
         return _const(self.spec.mont_scalar(v), self.device)

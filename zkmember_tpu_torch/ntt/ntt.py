@@ -15,6 +15,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from zkmember_tpu_torch import native
 from zkmember_tpu_torch.fields import device as dv
 from zkmember_tpu_torch.fields.spec import FieldSpec
 
@@ -29,6 +30,20 @@ def _bit_reverse_perm(n: int) -> np.ndarray:
 
 
 _DOMAIN_CACHE: dict = {}
+
+
+def _geom_mont(spec: FieldSpec, count: int, base: int, scale: int) -> np.ndarray:
+    """[scale, scale base, ..., scale base^(count - 1)] as (count, n) Montgomery
+    limbs: the native library's sequence where it is built, else Python
+    bignums (the same values)."""
+    nf = native.NativeField.get(spec.p, spec.n)
+    if nf is None:
+        seq = [scale % spec.p] * count
+        for k in range(1, count):
+            seq[k] = seq[k - 1] * base % spec.p
+        return spec.to_mont_host(seq)
+    rows = nf.geom_seq(count, nf.ints_to_mont([base])[0], nf.ints_to_mont([scale])[0])
+    return native.u64_to_u16_planes(rows)
 
 
 class Domain:
@@ -72,36 +87,30 @@ class Domain:
         """Stacked Pease-stage twiddle table, shape (log N, N/2, n_limbs).
 
         Stage s of the constant-geometry DIF uses w^((i >> s) << s) at
-        butterfly lane i (verified against the naive DFT; see module doc).
+        butterfly lane i (verified against the naive DFT; see module doc):
+        a geometric sequence in w^(2^s) of length N/2^(s+1), each term
+        repeated 2^s times.
         """
         if inverse not in self._stage_tw:
             p, N = self.spec.p, self.size
             w = self.w_inv if inverse else self.w
             logn = N.bit_length() - 1
-            stages = []
-            for s in range(logn):
-                # lane i uses w^((i >> s) << s): a geometric sequence in
-                # w^(2^s) of length N/2^(s+1), each term repeated 2^s times
-                # (incremental products -- pow() per lane was an O(N log N
-                # log p) host hotspot that serialized prover warm-up)
-                step = pow(w, 1 << s, p)
-                count = N >> (s + 1)
-                seq = [1] * count
-                for k in range(1, count):
-                    seq[k] = seq[k - 1] * step % p
-                lane = [seq[i >> s] for i in range(N // 2)]
-                stages.append(self.spec.to_mont_host(lane))
-            self._stage_tw[inverse] = np.stack(stages)
+            self._stage_tw[inverse] = np.stack([
+                np.repeat(_geom_mont(self.spec, N >> (s + 1), pow(w, 1 << s, p), 1), 1 << s,
+                          axis=0)
+                for s in range(logn)
+            ])
         return self._stage_tw[inverse]
 
     def _coset_powers(self, inverse: bool) -> np.ndarray:
+        """[c g^j for j < N] in Montgomery form: c = 1 and g the coset
+        generator, or c = 1/N and g its inverse."""
         if inverse not in self._coset_pows:
-            p, N = self.spec.p, self.size
-            g = self.coset_gen_inv if inverse else self.coset_gen
-            seq = [self.size_inv if inverse else 1] * N
-            for j in range(1, N):
-                seq[j] = seq[j - 1] * g % p
-            self._coset_pows[inverse] = self.spec.to_mont_host(seq)
+            if inverse:
+                seq = _geom_mont(self.spec, self.size, self.coset_gen_inv, self.size_inv)
+            else:
+                seq = _geom_mont(self.spec, self.size, self.coset_gen, 1)
+            self._coset_pows[inverse] = seq
         return self._coset_pows[inverse]
 
     def vanishing_on_coset(self) -> int:
