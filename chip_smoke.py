@@ -2,8 +2,8 @@
 """Run the PyTorch/CUDA port on one NVIDIA GPU, end to end.
 
     python3 chip_smoke.py [--seed S]
-        [--phases device,build,k2,k1,prove,k3,setup,prove_v1,cli,prove_batch,harness,
-                  hash,scale,bw6,marlin[,profile]]
+        [--phases device,build,k2,k1,prove,options,k3,setup,prove_v1,cli,prove_batch,
+                  harness,hash,scale,bw6,marlin[,profile]]
 
 Phases (each raises on failure, so the script exits non-zero):
   device  the card's name and power limit (nvidia-smi)
@@ -27,9 +27,19 @@ Phases (each raises on failure, so the script exits non-zero):
           kernel call of every distinct shape against its plain version on
           the same inputs (K2's shapes and launches must match the table
           phase k2 timed, and no K2 operand may be copied); then K1 and the
-          finish are timed at the proof's shapes beside their plain
-          versions, and the outputs must agree (a proof is prove_batch of
+          finish are timed at the proof's shapes on the checked proof's
+          inputs, beside that run's plain times (a proof is prove_batch of
           one: K1's digits are (W, 1, R, B))
+  options prove_lm's key options on the committed key: precompute=False,
+          merge_bool=False (the boolean witness class split out, summed by
+          masked lane reductions on K2; every MSM's table built on the fly):
+          a warm-up and a timed proof (launches counted), equal to the
+          table-route proof from the same rng state, verified, tampered ones
+          rejected; phases; one more proof under checked_run (K2 at the
+          per-call table builds and the boolean reductions, K1 and the
+          finish over the per-call tables); window_sums over the G1 rows
+          under checked_run, its Horner join equal to msm_program's; K1, the
+          finish and K2 timed at the new shapes
   k3      batch-major Montgomery-product kernel against its plain version,
           bit for bit, at n = 16, 24 and 48 (random rows, the rows 0, 1 and
           p - 1, a broadcast (n,) operand) for both stacks' fields, then
@@ -86,7 +96,11 @@ Phases (each raises on failure, so the script exits non-zero):
           verified, with the launches of each phase (counts reset at each
           row); the proof fails for a wrong leaf; one more proof holds every
           kernel call against its plain version; K1 and the finish timed at
-          its shapes
+          its shapes; a precompute=False proof (the on-the-fly route) equal
+          to the table route's; msm_program_chunked over the G1 rows in 4
+          slices of 2^15 lanes equal to one unsliced MSM, K1 and the finish
+          timed at the slice; the allocator's peak around a build of the G1
+          table and around a table-route proof (straus.table_budget's basis)
   bw6     the pedersen761 stack (Groth16 over BW6-761, Fq of 48 limbs for G1
           and G2): the 16-member registrar and circuit (20,761 constraints,
           M = 2^15); setup on the card; the key saved and loaded back; warm,
@@ -106,25 +120,32 @@ Phases (each raises on failure, so the script exits non-zero):
           NTTs on K2, the matrix commitments on K1 and the finish), a first
           proof, a timed one with the launch counts reset just before it
           and read just after (K2 at every NTT stage, K1 and the finish
-          once per round and once for the openings, nothing else), a proof
+          once per round and once for the openings, nothing else; K1 and
+          the finish counted by shape, the launches the kernels line gives
+          each shape), a proof
           with phases; it verifies, and a wrong root and another member's
           leaf are rejected; another rng gives other w_hat and z_A
           commitments; one more setup, index and proof hold the first call
           of every kernel at each distinct shape against its plain version
           (the SRS and commitments must come out the same, K2's shapes
           must match marlin_k2_shapes); K1 and the finish timed at each
-          commit shape, K2 at each NTT shape, K3 at setup's wave; then the
+          commit shape, K2 at each NTT shape, K3 at setup's wave; a warm
+          proof with the KZG lane budget below D + 1 (no SRS table: each
+          commitment through msm_program; launches counted by shape),
+          equal to the table route's proof and commitments, K1 and the
+          finish timed at each of its shapes; then the
           pedersen761 registrar of MARLIN_BW6_MEMBERS members (K1 and the
           finish at n = 48) set up, indexed, proved, verified, tampered
-          and checked; then the bench harness's --systems marlin and
+          and checked, K1 and the finish timed at its commit shapes; then
+          the bench harness's --systems marlin and
           --universal runs in subprocesses (rows parse, verify true)
   profile (optional, last) one more run of each prover path that ran
           (prove, prove_batch at 8 proofs, scale, bw6, prove_v1, hash, marlin) under
           torch.profiler: the kernels' device time, the device's idle
           share, the top kernels
 
-Progress goes to stderr.  stdout ends with a prove line, a setup/prove_v1
-line, a prove_batch/harness/scale line, a BW6-761 line, a hash line, a
+Progress goes to stderr.  stdout ends with a prove line, an options line, a
+setup/prove_v1 line, a prove_batch/harness/scale line, a BW6-761 line, a hash line, a
 Marlin line, the
 card line (nvidia-smi), one JSON "kernels" line and, last, {"ok": true,
 "device": ...}.
@@ -172,6 +193,10 @@ ERRS: dict = {}  # kernel -> largest limb difference from its plain version
 CHECKS: dict = {}  # kernel -> the shapes at which it was held against it
 MSM_TIMES: list = []  # K1 and the finish timed at each path's shapes, one entry a group
 MSM_REPS = 5  # calls a round when K1 or the finish is timed: each takes 2-170 ms
+# (kernel, input shape) -> the plain time and the inputs of the first call that
+# checked_run held at that shape in the current phase: time_k1_finish times the
+# kernel on those inputs instead of running the slow plain version again
+PLAIN_RUNS: dict = {}
 
 
 def log(msg: str) -> None:
@@ -515,7 +540,7 @@ def phase_prove(np_rng):
     log(f"circuit: {cs.num_constraints} constraints, {cs.num_variables} vars")
     ck = os.path.join(REPO, "artifacts", "groth16_bls12_381_16")
     keys = checkpoint.load_groth16_keys(ck, device="cuda")
-    log(f"keys loaded: M={keys.M}, G1 lanes 4x{keys.B1}, G2 lanes {keys.B2}, {keys.nwin} windows")
+    log(f"keys loaded: M={keys.M}, G1 lanes 4x{keys.B1}, G2 lanes {keys.B2g}, {keys.nwin} windows")
     t = time.time()
     prove_lm.warm(keys)
     log(f"warm (kernels + Straus tables) in {time.time() - t:.1f}s")
@@ -561,28 +586,155 @@ def phase_prove(np_rng):
     time_msm_kernels(np_rng, keys, 1, "proof", launches)
 
 
-def time_msm_kernels(np_rng, keys, P: int, where: str, launches: dict) -> None:
-    """K1 (G1 and G2) on random digits of the shape a batch of P proofs
-    over `keys` gives it, (W, P, R, B), and the finish on its output viewed
-    as (W, P R, n, NT), as prove_lm's batched MSM does: each held against
-    its plain version on the same inputs, then timed beside it.  Appends one
-    entry per (kernel, group) to MSM_TIMES, with `path` (where) and the
-    launches that fall to its group in that path's timed run (`launches`)."""
-    share = 1 if keys.cfg.g2_fp2 else 2  # groups that run one variant (BW6-761: both)
-    for group, tab, R, B in (("G1", keys.g1_tab, 4, keys.B1), ("G2", keys.g2_tab, 1, keys.B2)):
+def _scalars_on_points(np_rng, fr, X, Y):
+    """Random canonical scalar limbs (..., nl, B) for the affine planes
+    (X, Y) (..., n, B) of a key's rows, zero on the padded lanes, whose (0, 0)
+    is no curve point: the complete law holds only for curve points."""
+    import math
+
+    shape = tuple(X.shape)
+    lead, B = shape[:-2], shape[-1]
+    z = rand_planes(np_rng, fr, (math.prod(lead), fr.n, B)).reshape(lead + (fr.n, B))
+    on_curve = ((X != 0) | (Y != 0)).any(dim=-2, keepdim=True)
+    return z * on_curve
+
+
+def phase_options(np_rng):
+    """prove_lm's key options on the committed 16-member key: a key with
+    precompute=False and merge_bool=False (rebuilt from the checkpoint's
+    ProvingKey; the boolean witness class split out with the circuit's
+    boolean variables); a warm-up and a timed proof with the launch counts
+    reset just before it and read just after (K2, and K1 and the finish
+    once per MSM family); the proof equals the table route's from the same
+    rng state, verifies, and fails tampered; one more proof under
+    checked_run (the per-call table builds and the boolean tree reductions
+    on K2, K1 and the finish over the per-call tables); window_sums over
+    the key's G1 rows under checked_run, its Horner join equal to
+    msm_program's; K1 and the finish timed on the checked proof's inputs,
+    K2 at each of its shapes that a table-route proof does not have."""
+    import torch
+
+    from zkmember_tpu_torch import kernels
+    from zkmember_tpu_torch.fields import spec as fs
+    from zkmember_tpu_torch.msm import straus
+    from zkmember_tpu_torch.snark import prove_lm
+    from zkmember_tpu_torch.utils import checkpoint
+
+    cs, public, _ = _membership_circuit(16)
+    state = _registrar(16)[-1]
+    base = STATE.get("keys") or checkpoint.load_groth16_keys(
+        os.path.join(REPO, "artifacts", "groth16_bls12_381_16"), device="cuda")
+    out: dict = {}
+    t = time.time()
+    keys = prove_lm.Groth16KeysLM(base.pk, "cuda", cs=cs, precompute=False, merge_bool=False)
+    prove_lm.warm(keys)
+    out["keys_s"] = time.time() - t
+    if keys.g1_tab is not None or keys.g2_tab is not None or not keys.has_bool:
+        raise AssertionError("the options key keeps a table or has no boolean class")
+    out.update(M=keys.M, B1=keys.B1, Bb=keys.Bb, B2g=keys.B2g, B2b=keys.B2b,
+               booleans=len(cs.boolean_vars),
+               bool_lanes=[len(c) for c in keys.bool_cols] + [len(keys.b_bool_cols)])
+    log(f"options key in {out['keys_s']:.2f}s: G1 4x{keys.B1} general and 3x{keys.Bb} boolean "
+        f"lanes {out['bool_lanes'][:3]}, G2 {keys.B2g} general and {keys.B2b} boolean lanes "
+        f"({out['bool_lanes'][3]}), no table")
+    t = time.time()
+    prove_lm.prove(keys, cs, rng=_rng_at(state))
+    out["first_prove_s"] = time.time() - t
+
+    kernels.reset_launches()
+    torch.cuda.synchronize()
+    t = time.time()
+    proof = prove_lm.prove(keys, cs, rng=_rng_at(state))
+    out["prove_s"] = time.time() - t
+    launches = {k: v for k, v in kernels.LAUNCHES.items() if v}
+    log(f"options: warm-up proof {out['first_prove_s']:.3f}s, timed proof {out['prove_s']:.3f}s; "
+        f"launches {launches}")
+    want = {"select_reduce_fp": 1, "select_reduce_fp2": 1, "msm_finish_fp": 2, "msm_finish_fp2": 2}
+    if {k: launches.get(k, 0) for k in want} != want or set(launches) != set(want) | {"mont_mul"}:
+        raise AssertionError(f"the options proof launched {launches}")
+    out["launches"] = launches
+    if not _same_proof(proof, prove_lm.prove(base, cs, rng=_rng_at(state))):
+        raise AssertionError("the options proof differs from the table route's")
+    log("options: the proof equals the table-route proof from the same rng state")
+    _holds_and_tamper_fails(keys.cfg, keys.pk.vk, public, proof, "options proof")
+    phases: dict = {}
+    t = time.time()
+    prove_lm.prove(keys, cs, rng=_rng_at(state), phase_times=phases)
+    out["breakdown"] = {"total_s": time.time() - t, **phases}
+    log("options phases of a proof synchronized at each phase: " + ", ".join(
+        f"{k} {v:.3f}s" for k, v in out["breakdown"].items()))
+
+    checked, k2_shapes, k1_shapes, *_ = checked_run(
+        lambda: prove_lm.prove(keys, cs, rng=_rng_at(state)), "options proof")
+    if not _same_proof(checked, proof):
+        raise AssertionError("the checked options proof differs from the timed one")
+    if sum(k2_shapes.values()) != launches["mont_mul"]:
+        raise AssertionError(f"the checked options proof's K2 calls {k2_shapes} differ from "
+                             "the timed proof's")
+    h_shapes = k2_proof_shapes(keys.M)
+    if any(k2_shapes.get(k, 0) < v for k, v in h_shapes.items()):
+        raise AssertionError(f"the options proof's K2 calls {k2_shapes} miss the H pipeline's")
+    new = {k: v for k, v in k2_shapes.items() if k not in h_shapes}
+    out["k2_new_shapes"] = [[f, list(a), list(b), v] for (f, a, b), v in new.items()]
+    out["k1_shapes"] = [[list(k), v] for k, v in k1_shapes.items()]
+
+    # window_sums over the key's G1 rows on random scalars, held against
+    # its plain version; its Horner join equals msm_program's point, row for row
+    z = _scalars_on_points(np_rng, fs.BLS_FR, keys.g1_X, keys.g1_Y)
+    S, ws_k2, ws_k1, *_ = checked_run(
+        lambda: straus.window_sums(keys.ops1, keys.g1_X, keys.g1_Y, z, keys.nwin),
+        "options window sums")
+    if tuple(S[0].shape) != (keys.nwin, 4, fs.BLS_FQ.n, 1):
+        raise AssertionError(f"window_sums gave {tuple(S[0].shape)}")
+    joined = _to_numpy(straus.horner_join(keys.ops1, S))
+    direct = _to_numpy(straus.msm_program(keys.ops1, keys.g1_X, keys.g1_Y, z, keys.nwin))
+    g1 = keys.cfg.mod.G1
+    for r in range(4):
+        a, b = (straus.projective_to_host(g1, tuple(c[r] for c in P)) for P in (joined, direct))
+        if a is None or a != b:
+            raise AssertionError(f"window_sums' Horner join differs from msm_program at row {r}")
+    out["window_sums"] = {"k1_shapes": [list(k) for k in ws_k1],
+                          "k2_launches": sum(ws_k2.values())}
+    log("options: window_sums over the G1 rows held against its plain version; its Horner "
+        "join equals msm_program row for row")
+
+    time_msm_kernels(np_rng, keys, 1, "options proof", launches)
+    # K2 timed at the new shapes of 256 lanes or more (the per-call table
+    # waves, the widest boolean reduction levels); the narrower ones are held
+    out["mont_mul_shapes"] = time_k2(
+        np_rng, {k: v for k, v in new.items() if k[1][-1] >= 256}, None, "options proof")
+    RESULTS["options"] = out
+
+
+def time_msm_kernels(np_rng, keys, P: int, where: str, launches: dict,
+                     counted: dict | None = None) -> None:
+    """K1 (G1 and G2) on digits of the shape a batch of P proofs over `keys`
+    gives it, (W, P, R, B), and the finish on its output viewed as (W, P R,
+    n, NT), as prove_lm's batched MSM does (time_k1_finish: on the inputs
+    checked_run held at that shape, else random digits against the key's
+    table).  Appends one entry per (kernel, group) to MSM_TIMES, with
+    `path` (where) and the launches of its group in that path's timed run:
+    from `counted` (``_k1_finish_launches``, by digit shape) where G1 and
+    G2 run one variant (BW6-761), else from `launches` by variant."""
+    if counted is None and not keys.cfg.g2_fp2:
+        raise AssertionError("BW6-761's G1 and G2 share K1's variant: count them by shape")
+    for group, tab, R, B in (("G1", keys._g1_tab, 4, keys.B1), ("G2", keys._g2_tab, 1, keys.B2g)):
         g2 = group == "G2"
+        at = counted[(keys.nwin, P, R, B)] if counted else launches
         time_k1_finish(np_rng, keys.ops2 if g2 else keys.ops1, tab, keys.nwin, P, R, B,
-                       where, group, launches, share)
+                       where, group, at)
 
 
 def time_k1_finish(np_rng, ops, tab, W: int, P: int, R: int, B: int, where: str, group: str,
-                   launches: dict, share: int = 1) -> None:
-    """K1 on random digits (W, P, R, B) against the table `tab` (its rows
-    gathered to R), and the finish on K1's output viewed as (W, P R, n, NT):
-    each held against its plain version on the same inputs (that one plain
-    call is also its time), then timed (MSM_REPS calls a round); one
-    MSM_TIMES entry each, with `launches[name] // share`
-    (the launches of that path's timed run that fall to this group)."""
+                   launches: dict) -> None:
+    """K1 on digits (W, P, R, B) against the table `tab` (its rows gathered
+    to R), and the finish on K1's output viewed as (W, P R, n, NT); one
+    MSM_TIMES entry each, with `launches[name]` (the launches of that
+    path's timed run at this shape or group), timed with MSM_REPS
+    calls a round.  Where checked_run held the kernel at that shape earlier
+    in this phase (PLAIN_RUNS), it is timed on those inputs beside that
+    plain call's time; otherwise on random digits, held against its plain
+    version on the same inputs (that one plain call is also its time)."""
     import torch
 
     from zkmember_tpu_torch.msm import finish_cuda as fin, select_reduce_cuda as k1, straus
@@ -590,14 +742,21 @@ def time_k1_finish(np_rng, ops, tab, W: int, P: int, R: int, B: int, where: str,
     fp2, spec, _ = k1.kernel_consts(ops)
     n = spec.n
     imads_per_mul = _imads(spec)
-    if tab.shape[1] != R:
-        tab = tab[:, torch.arange(R, device=tab.device) % tab.shape[1]].contiguous()
-    dig = torch.as_tensor(np_rng.integers(0, 16, size=(W, P, R, B)), dtype=torch.int32,
-                          device="cuda")
     name = k1.variant("select_reduce", fp2, n)
-    S = k1.select_reduce_cuda(ops, tab, dig)
-    want, plain_ms = plain_timed(lambda: select_reduce_plain_sliced(ops, tab, dig))
-    err = _hold(name, f"{where} W={W} P={P} R={R} B={B}", S, want)
+    where_k1 = f"{where} W={W} P={P} R={R} B={B}"
+    held = PLAIN_RUNS.get((name, (W, P, R, B)))
+    if held:
+        _, tab, dig = held["args"]
+        plain_ms, err = held["ms"], 0
+        S = k1.select_reduce_cuda(ops, tab, dig)
+    else:
+        if tab.shape[1] != R:
+            tab = tab[:, torch.arange(R, device=tab.device) % tab.shape[1]].contiguous()
+        dig = torch.as_tensor(np_rng.integers(0, 16, size=(W, P, R, B)), dtype=torch.int32,
+                              device="cuda")
+        S = k1.select_reduce_cuda(ops, tab, dig)
+        want, plain_ms = plain_timed(lambda: select_reduce_plain_sliced(ops, tab, dig))
+        err = _hold(name, where_k1, S, want)
     _, L = k1.tile_shape(B)
     NT = B // L
     nc = 2 if fp2 else 1
@@ -605,8 +764,9 @@ def time_k1_finish(np_rng, ops, tab, W: int, P: int, R: int, B: int, where: str,
     point_bytes = 3 * nc * n * 4
     rows = P * R
     MSM_TIMES.append({
-        "name": name, "group": group, "path": where, "launches": launches[name] // share,
+        "name": name, "group": group, "path": where, "launches": launches[name],
         "shape": [W, P, R, B], "max_abs_err": err,
+        "inputs": "the checked run's" if held else "random digits",
         "ms": cuda_ms(lambda: k1.select_reduce_cuda(ops, tab, dig), reps=MSM_REPS),
         "plain_ms": plain_ms,
         "bound": _bound(16 * R * B * point_bytes + W * rows * B * 4
@@ -616,21 +776,29 @@ def time_k1_finish(np_rng, ops, tab, W: int, P: int, R: int, B: int, where: str,
     # the finish on this K1 output, its P R rows as one axis: NT lanes a
     # window, then the join
     fname = k1.variant("msm_finish", fp2, n)
-    Sv = tuple(straus._map_coord(lambda c: c.reshape(W, rows, n, NT), x) for x in S)
-    want, plain_ms = plain_timed(lambda: fin.msm_finish_plain(ops, Sv))
-    err = _hold(fname, f"{where} W={W} rows={rows} NT={NT}", fin.msm_finish_cuda(ops, Sv), want)
+    held = PLAIN_RUNS.get((fname, (W, rows, NT)))
+    if held:
+        Sv = held["args"][1]
+        plain_ms, err = held["ms"], 0
+    else:
+        Sv = tuple(straus._map_coord(lambda c: c.reshape(W, rows, n, NT), x) for x in S)
+        want, plain_ms = plain_timed(lambda: fin.msm_finish_plain(ops, Sv))
+        err = _hold(fname, f"{where} W={W} rows={rows} NT={NT}", fin.msm_finish_cuda(ops, Sv),
+                    want)
     chain = 5 * W  # dependent additions of one row's join
     MSM_TIMES.append({
-        "name": fname, "group": group, "path": where, "launches": launches[fname] // share,
+        "name": fname, "group": group, "path": where, "launches": launches[fname],
         "shape": [W, rows, NT], "max_abs_err": err,
+        "inputs": "the checked run's" if held else "random digits",
         "ms": cuda_ms(lambda: fin.msm_finish_cuda(ops, Sv), reps=MSM_REPS),
         "plain_ms": plain_ms,
         "bound": _bound(W * rows * NT * point_bytes + rows * point_bytes,
                         (W * rows * (NT - 1) + chain * rows) * prods * imads_per_mul),
     })
     for r in MSM_TIMES[-2:]:
-        log(f"{r['name']} {r['group']} at {r['shape']} ({where}): kernel {r['ms']:.3f} ms, "
-            f"plain {r['plain_ms']:.1f} ms, bound {r['bound'][0]:.4f} ms ({r['bound'][1]})")
+        log(f"{r['name']} {r['group']} at {r['shape']} ({where}, {r['inputs']}): kernel "
+            f"{r['ms']:.3f} ms, plain {r['plain_ms']:.1f} ms, bound {r['bound'][0]:.4f} ms "
+            f"({r['bound'][1]})")
 
 
 def checked_run(run, what: str):
@@ -639,7 +807,9 @@ def checked_run(run, what: str):
     field) held against its plain version on the same inputs, limb for
     limb: K2 and K3 at each operand shape, K1 at each digit grid and the
     finish at each window-sum shape; no K2 operand may be copied.  Its
-    launches are outside any counted run.  Returns run()'s result, the
+    launches are outside any counted run.  The plain K1 and finish calls
+    are timed, and the first at each shape is kept in PLAIN_RUNS with its
+    inputs for time_k1_finish.  Returns run()'s result, the
     launches of the run itself (K2's by (field, shape of a, shape of b),
     K1's by digit shape, K3's by (field, shape of a, shape of b)) and the
     sorted (field, shape of a, shape of b) of the K3 calls whose operand
@@ -700,15 +870,21 @@ def checked_run(run, what: str):
         out = select_reduce_cuda(ops, tab, digits)
         key = tuple(digits.shape)
         k1_shapes[key] = k1_shapes.get(key, 0) + 1
-        _hold(variant("select_reduce", ops), f"{what} digits {key}", out,
-              plain(select_reduce_plain_sliced, ops, tab, digits))
+        name = variant("select_reduce", ops)
+        want, ms = plain_timed(lambda: plain(select_reduce_plain_sliced, ops, tab, digits))
+        _hold(name, f"{what} digits {key}", out, want)
+        PLAIN_RUNS.setdefault((name, key), {"ms": ms, "args": (ops, tab, digits)})
         return out
 
     def msm_finish_checked(ops, S):
         out = msm_finish_cuda(ops, S)
         c = S[0][0] if isinstance(S[0], tuple) else S[0]
-        _hold(variant("msm_finish", ops), f"{what} {tuple(c.shape)}", out,
-              plain(fin.msm_finish_plain, ops, S))
+        name = variant("msm_finish", ops)
+        want, ms = plain_timed(lambda: plain(fin.msm_finish_plain, ops, S))
+        _hold(name, f"{what} {tuple(c.shape)}", out, want)
+        if c.ndim == 4:  # (W, rows, n, NT), as time_k1_finish views K1's output
+            PLAIN_RUNS.setdefault((name, (c.shape[0], c.shape[1], c.shape[3])),
+                                  {"ms": ms, "args": (ops, S)})
         return out
 
     lm_cuda.mont_mul_cuda, k1.select_reduce_cuda = mont_mul_checked, select_reduce_checked
@@ -792,7 +968,8 @@ def raw_launch(fn, prepare, spec, a, b):
 def _shape_row(r: dict) -> dict:
     """A kernel's entry of the kernels line at one more shape of a path."""
     row = {k: r[k] for k in ("path", "group", "shape", "operand_b", "launches", "max_abs_err",
-                             "ms", "plain_ms", "device_ms", "host_us", "in_l2") if k in r}
+                             "inputs", "ms", "plain_ms", "device_ms", "host_us", "in_l2")
+           if k in r}
     return {**row, "bound_ms": r["bound"][0], "bound_by": r["bound"][1], "library_ms": None}
 
 
@@ -1124,7 +1301,20 @@ def _holds_and_tamper_fails(cfg, vk, public, proof, what: str) -> None:
     log(f"{what} verifies; negated C and a wrong public input are rejected")
 
 
+def _release_card() -> None:
+    """Hand the memory this process's allocator caches back to the card, so
+    that a subprocess can take it (the plain versions' temporaries leave
+    tens of GB cached)."""
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def _cli(args, env, cwd, stdin=None, want_rc=0):
+    _release_card()
     t = time.time()
     res = subprocess.run(
         [sys.executable, "-m", "zkmember_tpu_torch.app.cli", *args], input=stdin,
@@ -1213,17 +1403,19 @@ def _batch_equals_sequential(keys, circuits, state, what: str):
     """prove_batch over circuits [(cs, public), ...] from rng `state`,
     launches counted: raise unless each proof equals the sequential prove
     call's with the same rng state, verifies, and is rejected for the next
-    member's leaf.  Returns the proofs, the batch's seconds and launches."""
+    member's leaf.  Returns the proofs, the batch's seconds, its launches
+    and K1's and the finish's launches by K1 digit shape
+    (``_k1_finish_launches``)."""
     import torch
 
     from zkmember_tpu_torch import kernels
     from zkmember_tpu_torch.snark import groth16, prove_lm
 
     P = len(circuits)
-    kernels.reset_launches()
     torch.cuda.synchronize()
     t = time.time()
-    proofs = prove_lm.prove_batch(keys, [c for c, _ in circuits], rng=_rng_at(state))
+    proofs, k1_shapes, fin_shapes, _, _ = _launches_by_shape(
+        lambda: prove_lm.prove_batch(keys, [c for c, _ in circuits], rng=_rng_at(state)))
     seconds = time.time() - t
     launches = dict(kernels.LAUNCHES)
     seq_rng = _rng_at(state)
@@ -1237,7 +1429,7 @@ def _batch_equals_sequential(keys, circuits, state, what: str):
             raise AssertionError(f"{what} proof {i} verifies for another member's leaf")
     log(f"{what} of {P} (first) in {seconds:.2f}s: every proof verifies, equals {P} sequential "
         "prove calls with the same rng state, and is rejected for another member's leaf")
-    return proofs, seconds, launches
+    return proofs, seconds, launches, _k1_finish_launches(k1_shapes, fin_shapes)
 
 
 def phase_prove_batch(np_rng):
@@ -1269,7 +1461,7 @@ def phase_prove_batch(np_rng):
 
     # checked batch: equal to sequential proofs, each verifies, bound to its leaf
     P = BATCH_CHECKED
-    proofs, _, _ = _batch_equals_sequential(keys, circuits[:P], state, "batch")
+    proofs, *_ = _batch_equals_sequential(keys, circuits[:P], state, "batch")
     checked, k2_shapes, *_ = checked_run(
         lambda: prove_lm.prove_batch(keys, cs_all[:P], rng=_rng_at(state)), f"batch of {P}")
     if not all(_same_proof(a, b) for a, b in zip(checked, proofs)):
@@ -1325,6 +1517,7 @@ def phase_prove_batch(np_rng):
 
 def _run_module(module: str, args, want_rc: int = 0):
     """python -m <module> <args> from the root of the checkout; its stdout."""
+    _release_card()
     t = time.time()
     res = subprocess.run([sys.executable, "-m", module, *args], capture_output=True, text=True,
                          env=dict(os.environ, PYTHONPATH=REPO), cwd=REPO, timeout=900)
@@ -1636,9 +1829,111 @@ def phase_scale(np_rng):
                         "launches": by["prove"]["launches"],
                         "setup_launches": by["setup"]["launches"]}
     time_msm_kernels(np_rng, keys, 1, "depth 32", RESULTS["scale"]["launches"])
+    RESULTS["scale"]["onthefly"] = _scale_onthefly(np_rng, keys, cs, public)
     STATE["scale"] = (keys, cs)
     log("scale: the depth-32 proof verifies, a wrong leaf is rejected, every kernel call "
         "of a checked proof equals its plain version")
+
+
+def _scale_onthefly(np_rng, keys, cs, public) -> dict:
+    """The on-the-fly route at depth 32 (M = 2^17, 4 M = 2^19 lanes of G1): a
+    precompute=False key's proof, launches counted, equal to the table
+    route's from the same rng and verified; msm_program_chunked over the
+    key's G1 rows in 4 slices of 2^15 lanes (launches counted) equal, row
+    for row, to one unsliced on-the-fly MSM (the default 2^18-lane slice
+    never splits a row here); K1 and the finish timed at the slice's
+    shapes beside their plain versions."""
+    import torch
+
+    from zkmember_tpu_torch import kernels
+    from zkmember_tpu_torch.fields import spec as fs
+    from zkmember_tpu_torch.msm import straus
+    from zkmember_tpu_torch.snark import groth16, prove_lm
+    from zkmember_tpu_torch.utils import rng as frng
+
+    out: dict = {}
+    okeys = prove_lm.Groth16KeysLM(keys.pk, "cuda", precompute=False)
+    prove_lm.prove(okeys, cs, rng=frng.test_rng(32))  # warm-up
+    kernels.reset_launches()
+    torch.cuda.synchronize()
+    t = time.time()
+    proof = prove_lm.prove(okeys, cs, rng=frng.test_rng(32))
+    out["prove_s"] = time.time() - t
+    out["launches"] = {k: v for k, v in kernels.LAUNCHES.items() if v}
+    if not _same_proof(proof, prove_lm.prove(keys, cs, rng=frng.test_rng(32))):
+        raise AssertionError("the depth-32 on-the-fly proof differs from the table route's")
+    if not groth16.verify(keys.pk.vk, public, proof):
+        raise AssertionError("the depth-32 on-the-fly proof does not verify")
+    log(f"scale: precompute=False proof in {out['prove_s']:.3f}s, launches {out['launches']}; "
+        "equal to the table-route proof, verifies")
+    del okeys
+
+    B, S = keys.B1, 1 << 15
+    z = _scalars_on_points(np_rng, fs.BLS_FR, keys.g1_X, keys.g1_Y)
+    kernels.reset_launches()
+    t = time.time()
+    sliced = _to_numpy(straus.msm_program_chunked(keys.ops1, keys.g1_X, keys.g1_Y, z, keys.nwin,
+                                                  max_lanes=S))
+    out["chunked_s"] = time.time() - t
+    out["chunked_launches"] = {k: v for k, v in kernels.LAUNCHES.items() if v}
+    if (out["chunked_launches"].get("select_reduce_fp"), out["chunked_launches"].get(
+            "msm_finish_fp")) != (B // S, 2 * B // S):
+        raise AssertionError(f"the sliced MSM launched {out['chunked_launches']}")
+    whole = _to_numpy(straus.msm_program_chunked(keys.ops1, keys.g1_X, keys.g1_Y, z, keys.nwin))
+    g1 = keys.cfg.mod.G1
+    for r in range(4):
+        a, b = (straus.projective_to_host(g1, tuple(c[r] for c in P)) for P in (sliced, whole))
+        if a is None or a != b:
+            raise AssertionError(f"the sliced G1 MSM differs from the unsliced one at row {r}")
+    log(f"scale: msm_program_chunked over 4 x {B} G1 lanes in {B // S} slices of {S} in "
+        f"{out['chunked_s']:.3f}s ({out['chunked_launches']}), equal to one slice row for row")
+    tab = straus.table_program(keys.ops1, keys.g1_X[..., :S], keys.g1_Y[..., :S])
+    time_k1_finish(np_rng, keys.ops1, tab, keys.nwin, 1, 4, S, "depth 32 slice", "G1",
+                   out["chunked_launches"])
+    del tab
+    out["memory"] = _table_memory(keys, cs)
+    return out
+
+
+def _table_memory(keys, cs) -> dict:
+    """The basis of straus.table_budget at depth 32: the card's allocator
+    around one build of the key's G1 table (its bytes, what stays
+    allocated, the peak of the build) and around one table-route proof
+    beside the kept tables (its peak: a proof's working set)."""
+    import torch
+
+    from zkmember_tpu_torch.msm import straus
+    from zkmember_tpu_torch.snark import prove_lm
+    from zkmember_tpu_torch.utils import rng as frng
+
+    def peak_of(fn):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        kept = fn()
+        torch.cuda.synchronize()
+        return kept, torch.cuda.memory_allocated() - base, torch.cuda.max_memory_allocated() - base
+
+    tab, held, build_peak = peak_of(
+        lambda: straus.table_program(keys.ops1, keys.g1_X, keys.g1_Y))
+    del tab
+    _, _, proof_peak = peak_of(lambda: prove_lm.prove(keys, cs, rng=frng.test_rng(32)))
+    out = {"card_bytes": torch.cuda.get_device_properties(0).total_memory,
+           "table_budget": straus.table_budget("cuda"),
+           "g1_table_bytes": straus.table_bytes(keys.ops1, 4, keys.B1),
+           "g1_table_allocated": held, "g1_build_peak": build_peak,
+           "g2_table_bytes": straus.table_bytes(keys.ops2, 1, keys.B2g),
+           "proof_peak": proof_peak}
+    out["build_peak_over_table"] = build_peak / out["g1_table_bytes"]
+    log(f"scale: table memory at M = {keys.M}: G1 table {out['g1_table_bytes']} bytes "
+        f"({held} allocated), its build peaks {build_peak} bytes above the start "
+        f"({out['build_peak_over_table']:.2f} x the table); a table-route proof peaks "
+        f"{proof_peak} bytes above its start; the budget {out['table_budget']} of "
+        f"{out['card_bytes']} bytes")
+    if held != out["g1_table_bytes"]:
+        raise AssertionError(f"the G1 table holds {held} bytes, not "
+                             f"{out['g1_table_bytes']} (straus.table_bytes)")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -1723,18 +2018,19 @@ def phase_bw6(np_rng):
         t = time.time()
         prove_lm.warm(keys)
         out["keys_warm_s"] = time.time() - t
-        log(f"bw6 keys: M={keys.M}, G1 lanes 4x{keys.B1}, G2 lanes {keys.B2}, {keys.nwin} "
+        log(f"bw6 keys: M={keys.M}, G1 lanes 4x{keys.B1}, G2 lanes {keys.B2g}, {keys.nwin} "
             f"windows, b3 {keys.ops1.b3} / {keys.ops2.b3}; warm in {out['keys_warm_s']:.1f}s")
         t = time.time()
         prove_lm.prove(keys, cs, rng=_rng_at(state))
         log(f"bw6 warm-up proof in {time.time() - t:.2f}s")
 
-        kernels.reset_launches()
         torch.cuda.synchronize()
         t = time.time()
-        proof = prove_lm.prove(keys, cs, rng=_rng_at(state))
+        proof, k1_shapes, fin_shapes, _, _ = _launches_by_shape(
+            lambda: prove_lm.prove(keys, cs, rng=_rng_at(state)))
         out["prove_s"] = time.time() - t
         launches = dict(kernels.LAUNCHES)
+        counted = _k1_finish_launches(k1_shapes, fin_shapes)
         expect = dict.fromkeys(kernels.LAUNCHES, 0)
         expect.update({"mont_mul": 3 * (keys.M.bit_length() - 1) + 6, "select_reduce_fp48": 2,
                        "msm_finish_fp48": 4})
@@ -1791,16 +2087,16 @@ def phase_bw6(np_rng):
         # a batch of 4 distinct members equals 4 sequential proofs
         idxs = random.Random(1).sample(range(16), BATCH_CHECKED)
         circuits = [_member_circuit(16, i, stack) for i in idxs]
-        _, out["prove_batch_s"], out["launches_batch"] = _batch_equals_sequential(
+        _, out["prove_batch_s"], out["launches_batch"], batch_counted = _batch_equals_sequential(
             keys, circuits, state, f"BW6-761 batch (members {idxs})")
         if out["launches_batch"] != expect:
             raise AssertionError(f"the BW6-761 batch launched {out['launches_batch']}, "
                                  f"not {expect}")
         STATE["bw6"] = (keys, cs, _rng_at(state))
 
-        time_msm_kernels(np_rng, keys, 1, "bw6 proof", launches)
+        time_msm_kernels(np_rng, keys, 1, "bw6 proof", launches, counted)
         time_msm_kernels(np_rng, keys, BATCH_CHECKED, f"bw6 batch of {BATCH_CHECKED}",
-                         out["launches_batch"])
+                         out["launches_batch"], batch_counted)
 
         # the harness on the saved key, in a subprocess
         t = time.time()
@@ -1870,10 +2166,12 @@ def _marlin_holds(ivk, public, proof, other_leaf, r: int, what: str) -> None:
 
 def _marlin_run(stack: str, members: int, out: dict, timed: bool):
     """Universal setup, index, a first proof (it builds the domains' twiddle
-    tables) and, with `timed`, one more proof with the launch counts reset
-    just before it and read just after, on the `members`-member registrar
-    of `stack`.  Fills `out`; returns (pp, ipk, ivk, cs, public, other_leaf,
-    state, proof)."""
+    tables) and, with `timed`, one more proof, each with the launch counts
+    reset just before it and read just after, on the `members`-member
+    registrar of `stack`.  Fills `out`; returns (pp, ipk, ivk, cs, public,
+    other_leaf, state, proof, counted): `counted` maps each K1 digit shape
+    of the last of those proofs to its launches of K1 and the finish
+    (``_k1_finish_launches``)."""
     import torch
 
     from zkmember_tpu_torch import kernels
@@ -1913,29 +2211,30 @@ def _marlin_run(stack: str, members: int, out: dict, timed: bool):
         f"({out['setup_launches']}), index {out['index_s']:.2f}s "
         f"({out['index_launches']}; {phases})")
     state = rng.getstate()
-    kernels.reset_launches()
     t = time.time()
-    proof = marlin.prove(ipk, cs, rng=_rng_at(state), device="cuda")
+    proof, k1_shapes, fin_shapes, _, out["first_launches"] = _launches_by_shape(
+        lambda: marlin.prove(ipk, cs, rng=_rng_at(state), device="cuda"))
     out["first_prove_s"] = time.time() - t
-    out["first_launches"] = {k: v for k, v in kernels.LAUNCHES.items() if v}
     log(f"marlin {stack} first proof (the domains' twiddle tables) in "
         f"{out['first_prove_s']:.2f}s; launches {out['first_launches']}")
     if timed:
-        kernels.reset_launches()
         torch.cuda.synchronize()
         t = time.time()
-        again = marlin.prove(ipk, cs, rng=_rng_at(state), device="cuda")
+        again, k1_shapes, fin_shapes, _, _ = _launches_by_shape(
+            lambda: marlin.prove(ipk, cs, rng=_rng_at(state), device="cuda"))
         out["prove_s"] = time.time() - t
         out["launches"] = dict(kernels.LAUNCHES)
         log(f"marlin {stack} timed proof in {out['prove_s']:.3f}s; launches {out['launches']}")
         if _marlin_parts(again) != _marlin_parts(proof):
             raise AssertionError("two Marlin proofs from the same rng state differ")
+    counted = _k1_finish_launches(k1_shapes, fin_shapes)
+    out["k1_finish_shapes"] = [[list(k), v] for k, v in counted.items()]
     t = time.time()
     marlin.verify(ivk, public, proof)
     out["verify_s"] = time.time() - t
     _marlin_holds(ivk, public, proof, other_leaf, groth16.pairing_config(curve).r,
                   f"{stack} Marlin proof")
-    return pp, ipk, ivk, cs, public, other_leaf, state, proof
+    return pp, ipk, ivk, cs, public, other_leaf, state, proof, counted
 
 
 def _marlin_checked_setup_index(stack: str, pp, ivk, cs, what: str):
@@ -1964,6 +2263,124 @@ def _marlin_checked_setup_index(stack: str, pp, ivk, cs, what: str):
     return k3_setup, [list(k) for k in k1_index]
 
 
+def _launches_by_shape(run):
+    """run() with the launch counts set to 0 just before it, and each
+    launch of K1, the finish and K2 counted by shape where its wrapper
+    launches it (the rise of its count across the wrapper's call), nothing
+    held: K1 by (variant, digit shape), the finish by (variant, (W, rows,
+    NT)) as time_k1_finish views it, K2 by (field, shape of a, shape of
+    b).  Raises unless each kernel's counts by shape add up to its count
+    of the run.  Returns run()'s result, the three counts and the run's
+    launches."""
+    from zkmember_tpu_torch import kernels
+    from zkmember_tpu_torch.fields import lm_cuda
+    from zkmember_tpu_torch.msm import finish_cuda as fin, select_reduce_cuda as k1
+
+    launch = k1.select_reduce_cuda, fin.msm_finish_cuda, lm_cuda.mont_mul_cuda
+    by_shape: dict = {}  # (counter name, shape key) -> launches
+
+    def counted(fn, key_of):
+        def wrapper(*args):
+            before = dict(kernels.LAUNCHES)
+            out = fn(*args)
+            for name, v in kernels.LAUNCHES.items():
+                if v != before[name]:
+                    key = (name, key_of(*args))
+                    by_shape[key] = by_shape.get(key, 0) + v - before[name]
+            return out
+        return wrapper
+
+    def finish_key(ops, S):
+        c = S[0][0] if isinstance(S[0], tuple) else S[0]
+        return (c.shape[0], c.shape[1], c.shape[3]) if c.ndim == 4 else tuple(c.shape)
+
+    k1.select_reduce_cuda = counted(launch[0], lambda ops, tab, digits: tuple(digits.shape))
+    fin.msm_finish_cuda = counted(launch[1], finish_key)
+    lm_cuda.mont_mul_cuda = counted(
+        launch[2], lambda spec, a, b: (spec.name, tuple(a.shape), tuple(b.shape)))
+    kernels.reset_launches()
+    try:
+        result = run()
+    finally:
+        k1.select_reduce_cuda, fin.msm_finish_cuda, lm_cuda.mont_mul_cuda = launch
+    launches = {k: v for k, v in kernels.LAUNCHES.items() if v}
+    for name, v in launches.items():
+        if name != "mont_mul_bm" and sum(n for (c, _), n in by_shape.items() if c == name) != v:
+            raise AssertionError(f"{name}'s launches by shape {by_shape} do not add up to {v}")
+    k1_shapes = {(c, k): n for (c, k), n in by_shape.items() if c.startswith("select_reduce")}
+    fin_shapes = {(c, k): n for (c, k), n in by_shape.items() if c.startswith("msm_finish")}
+    k2_shapes = {k: n for (c, k), n in by_shape.items() if c == "mont_mul"}
+    return result, k1_shapes, fin_shapes, k2_shapes, launches
+
+
+def _k1_finish_launches(k1_shapes: dict, fin_shapes: dict) -> dict:
+    """K1's digit shapes (W, P, R, B) of one counted run -> the launches
+    of K1 there and of the finish at the window sums that K1 call gives,
+    (W, P R, NT), both from ``_launches_by_shape``: {K1 variant: n, finish
+    variant: m}.  Raises unless each finish shape comes from one K1 shape."""
+    from zkmember_tpu_torch.msm import select_reduce_cuda as k1
+
+    out, fed = {}, []
+    for (name, (W, P, R, B)), n in sorted(k1_shapes.items(), key=lambda kv: kv[0][1][::-1]):
+        fkey = (name.replace("select_reduce", "msm_finish"), (W, P * R, B // k1.tile_shape(B)[1]))
+        fed.append(fkey)
+        out[(W, P, R, B)] = {name: n, fkey[0]: fin_shapes.get(fkey, 0)}
+    if len(set(fed)) != len(fed) or set(fed) != set(fin_shapes):
+        raise AssertionError(f"the finish's shapes {sorted(fin_shapes)} are not one to each of "
+                             f"K1's {sorted(k1_shapes)}")
+    return out
+
+
+def _marlin_budget_run(np_rng, ipk, ivk, cs, public, state, proof, k2_table: dict) -> dict:
+    """KZG past its lane budget on the 16-member BLS12-381 Marlin key: the
+    SRS with a budget of D lanes (below D + 1 powers) and no table, a warm
+    proof with the launch counts reset just before it and read just after
+    (each commitment through straus.msm_program: its own table, K1, the
+    finish); the proof and every commitment in it equal the table route's
+    from the same rng state, and it verifies.  Then K1 and the finish at
+    each of its digit shapes, on random digits against a table of the SRS
+    powers, and K2 at each of its operand shapes of 16,384 lanes or more
+    that the table route's proof (`k2_table`) does not have: each held
+    against its plain version and timed beside it."""
+    import dataclasses
+
+    import torch
+
+    from zkmember_tpu_torch.msm import straus
+    from zkmember_tpu_torch.snark import groth16, marlin, prove_lm
+
+    pp = ipk.pp
+    bpp = dataclasses.replace(pp, max_tab_lanes=pp.max_degree, table=None)
+    bipk = dataclasses.replace(ipk, pp=bpp)
+    torch.cuda.synchronize()
+    t = time.time()
+    bproof, k1_shapes, fin_shapes, k2_shapes, launches = _launches_by_shape(
+        lambda: marlin.prove(bipk, cs, rng=_rng_at(state), device="cuda"))
+    at = _k1_finish_launches(k1_shapes, fin_shapes)
+    out = {"prove_s": time.time() - t, "max_tab_lanes": bpp.max_tab_lanes,
+           "launches": launches, "k1_finish_shapes": [[list(k), v] for k, v in at.items()]}
+    log(f"marlin past the KZG budget ({bpp.max_tab_lanes} lanes < {pp.max_degree + 1} powers): "
+        f"proof in {out['prove_s']:.3f}s, launches {launches}, K1 and the finish at {at}")
+    if bpp.table is not None:
+        raise AssertionError("the KZG budget route built an SRS table")
+    if _marlin_parts(bproof) != _marlin_parts(proof):
+        raise AssertionError("the Marlin proof past the KZG budget differs from the table route's")
+    if not marlin.verify(ivk, public, bproof):
+        raise AssertionError("the Marlin proof past the KZG budget does not verify")
+    log("marlin past the KZG budget: every commitment and the proof equal the table route's; "
+        "it verifies")
+    ops = prove_lm.sw_ops(groth16.pairing_config(pp.curve), False, "cuda")
+    D1 = pp.max_degree + 1
+    for (W, P, R, B), counts in at.items():
+        X, Y = (torch.nn.functional.pad(c[: min(B, D1)].T, (0, B - min(B, D1)))
+                for c in (pp.powers.x, pp.powers.y))
+        time_k1_finish(np_rng, ops, straus.table_program(ops, X, Y), W, P, R, B,
+                       "marlin past the KZG budget", "G1", counts)
+    new = {key: k for key, k in k2_shapes.items() if key not in k2_table and key[1][-1] >= 1 << 14}
+    out["mont_mul_shapes"] = time_k2(np_rng, new, None, "marlin past the KZG budget")
+    return out
+
+
 def phase_marlin(np_rng):
     """Marlin over KZG on the card: the 16-member BLS12-381 registrar (the
     prove phase's; |H| = 2^14, |K| = 2^15, SRS degree 196,608) through
@@ -1981,8 +2398,8 @@ def phase_marlin(np_rng):
     from zkmember_tpu_torch.snark import groth16, kzg, marlin, prove_lm
 
     out: dict = {}
-    pp, ipk, ivk, cs, public, other_leaf, state, proof = _marlin_run("pedersen381", 16, out,
-                                                                     timed=True)
+    pp, ipk, ivk, cs, public, other_leaf, state, proof, counted = _marlin_run(
+        "pedersen381", 16, out, timed=True)
     info = ipk.info
     if (info.n_h, info.n_k, pp.max_degree) != (1 << 14, 1 << 15, 196_608):
         raise AssertionError(f"the 16-member Marlin index has |H| {info.n_h}, |K| {info.n_k}, "
@@ -2024,14 +2441,17 @@ def phase_marlin(np_rng):
         raise AssertionError(f"the Marlin proof's K2 shapes {k2_shapes} differ from "
                              f"{marlin_k2_shapes(info.n_h, info.n_k, fs.BLS_FR)}")
     out["k1_shapes"] = [[list(k), v] for k, v in k1_shapes.items()]
+    if set(k1_shapes) != set(counted):
+        raise AssertionError(f"the checked Marlin proof's K1 shapes {sorted(k1_shapes)} differ "
+                             f"from the timed proof's {sorted(counted)}")
 
-    # times: K1 and the finish at each commit shape of the proof, K2 at its
-    # NTT shapes, K3 at setup's most launched shape
+    # times: K1 and the finish at each commit shape of the proof (with the
+    # timed proof's launches there), K2 at its NTT shapes, K3 at setup's
+    # most launched shape
     tab = kzg._powers_tab(pp, kzg.table_lanes(pp.max_degree))  # built by the index
     ops = prove_lm.sw_ops(groth16.pairing_config("bls12_381"), False, "cuda")
-    for (W, P, R, B), k in sorted(k1_shapes.items(), key=lambda kv: kv[0][2]):
-        time_k1_finish(np_rng, ops, tab, W, P, R, B, "marlin proof", "G1",
-                       {"select_reduce_fp": k, "msm_finish_fp": 2 * k})
+    for (W, P, R, B), counts in counted.items():
+        time_k1_finish(np_rng, ops, tab, W, P, R, B, "marlin proof", "G1", counts)
     out["mont_mul_shapes"] = time_k2(np_rng, k2_shapes, None, "marlin proof")
     (_, a3, b3), k3n = max(k3_setup.items(), key=lambda kv: kv[1])
     out["mont_mul_bm"] = dict(time_k3(np_rng, fs.BLS_FQ, a3, b3), path="marlin setup",
@@ -2039,11 +2459,12 @@ def phase_marlin(np_rng):
                               launches_at_shape=k3n)
     out["k3_setup_shapes"] = [[f, list(a), list(b), v] for (f, a, b), v in k3_setup.items()]
     STATE["marlin"] = (ipk, cs, state)
+    out["budget"] = _marlin_budget_run(np_rng, ipk, ivk, cs, public, state, proof, k2_shapes)
 
     # BW6-761: K1 and the finish at n = 48, K2 at BW6-761 Fr (n = 24)
     bw6: dict = {}
-    bpp, bipk, bivk, bcs, _, _, bstate, bproof = _marlin_run("pedersen761", MARLIN_BW6_MEMBERS,
-                                                             bw6, timed=False)
+    bpp, bipk, bivk, bcs, _, _, bstate, bproof, bcounted = _marlin_run(
+        "pedersen761", MARLIN_BW6_MEMBERS, bw6, timed=False)
     binfo = bipk.info
     want = {"mont_mul": sum(marlin_k2_shapes(binfo.n_h, binfo.n_k, fs.BW6_FR).values()),
             "select_reduce_fp48": 4, "msm_finish_fp48": 8}
@@ -2058,6 +2479,14 @@ def phase_marlin(np_rng):
     if _marlin_parts(bchecked) != _marlin_parts(bproof):
         raise AssertionError("the checked BW6-761 Marlin proof differs from the first")
     bw6["k1_shapes"] = [[list(k), v] for k, v in bk1.items()]
+    if set(bk1) != set(bcounted):
+        raise AssertionError(f"the checked BW6-761 Marlin proof's K1 shapes {sorted(bk1)} "
+                             f"differ from the first proof's {sorted(bcounted)}")
+    # K1 and the finish at n = 48 timed on the checked proof's inputs, with
+    # the first proof's launches at each shape
+    bops = prove_lm.sw_ops(groth16.pairing_config("bw6_761"), False, "cuda")
+    for (W, P, R, B), counts in bcounted.items():
+        time_k1_finish(np_rng, bops, None, W, P, R, B, "bw6 marlin proof", "G1", counts)
     out["bw6"] = bw6
     del bpp, bipk, bivk
 
@@ -2090,7 +2519,7 @@ def phase_marlin(np_rng):
     RESULTS["marlin"] = out
 
 
-PHASES = ("device", "build", "k2", "k1", "prove", "k3", "setup", "prove_v1", "cli",
+PHASES = ("device", "build", "k2", "k1", "prove", "options", "k3", "setup", "prove_v1", "cli",
           "prove_batch", "harness", "hash", "scale", "bw6", "marlin")
 
 
@@ -2098,6 +2527,14 @@ def hash_line() -> str:
     """The hash phase's stdout line."""
     return json.dumps({
         "metric": "pedersen_hash_merkle_1024members", **RESULTS["hash"],
+        "device": RESULTS["device"], "nvidia_smi": RESULTS["smi"],
+    })
+
+
+def options_line() -> str:
+    """The options phase's stdout line."""
+    return json.dumps({
+        "metric": "groth16_bls12_381_options_16members", **RESULTS["options"],
         "device": RESULTS["device"], "nvidia_smi": RESULTS["smi"],
     })
 
@@ -2130,7 +2567,13 @@ def main() -> int:
     np_rng = np.random.default_rng(args.seed)
     py_rng = random.Random(args.seed)
     for name in phases:
-        log(f"phase {name}")
+        PLAIN_RUNS.clear()  # a phase times kernels only on inputs it held itself
+        if name not in ("device", "build"):
+            _release_card()
+            log(f"phase {name} (card memory allocated "
+                f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB)")
+        else:
+            log(f"phase {name}")
         if name == "device":
             phase_device()
         elif name == "build":
@@ -2141,6 +2584,8 @@ def main() -> int:
             phase_k1(np_rng, py_rng)
         elif name == "prove":
             phase_prove(np_rng)
+        elif name == "options":
+            phase_options(np_rng)
         elif name == "k3":
             phase_k3(np_rng)
         elif name == "setup":
@@ -2176,6 +2621,7 @@ def main() -> int:
             "device": RESULTS["device"],
             "nvidia_smi": RESULTS["smi"],
         }))
+        print(options_line())
         print(json.dumps({
             "metric": "groth16_bls12_381_setup_prove_v1_16members",
             "setup_s": RESULTS["setup"], "prove_v1_s": RESULTS["prove_v1_s"],
@@ -2241,13 +2687,18 @@ def main() -> int:
             for k in ("group", "operand_b", "device_ms", "host_us", "in_l2"):
                 if k in r:
                     row[k] = r[k]
-            if name == "mont_mul":  # launches of the batched, depth-32, BW6-761 and Marlin
-                # proofs; K2 at a Marlin proof's NTT shapes
+            if name == "mont_mul":  # launches of the options, batched, depth-32, BW6-761 and
+                # Marlin proofs and of the on-the-fly routes; K2 at a Marlin proof's NTT
+                # shapes and at the options proof's new shapes
+                row["options_launches"] = RESULTS["options"]["launches"][name]
                 row["batched_launches"] = RESULTS["prove_batch"]["launches"][name]
                 row["scale_launches"] = RESULTS["scale"]["launches"][name]
+                row["scale_onthefly_launches"] = RESULTS["scale"]["onthefly"]["launches"][name]
                 row["bw6_launches"] = RESULTS["bw6"]["launches"][name]
                 row["marlin_launches"] = RESULTS["marlin"]["launches"][name]
-                more = RESULTS["marlin"]["mont_mul_shapes"]
+                row["marlin_budget_launches"] = RESULTS["marlin"]["budget"]["launches"][name]
+                more = (RESULTS["marlin"]["mont_mul_shapes"] + RESULTS["options"]["mont_mul_shapes"]
+                        + RESULTS["marlin"]["budget"]["mont_mul_shapes"])
             elif name == "mont_mul_bm":  # the depth-32 setup; BW6-761's v1 proof at n = 48;
                 # the Marlin setup's fixed-base wave
                 row["scale_launches"] = RESULTS["scale"]["setup_launches"][name]
@@ -2268,10 +2719,13 @@ def main() -> int:
             "count": torch.cuda.device_count(),
         }}))
     else:  # a phase alone: its line (and the kernel times)
+        if "options" in RESULTS:
+            print(options_line())
         if "hash" in RESULTS:
             print(hash_line())
         if "marlin" in RESULTS:
             print(marlin_line())
+        if MSM_TIMES:
             print(json.dumps({"msm_times": MSM_TIMES}))
     log("done")
     return 0

@@ -61,7 +61,7 @@ def proved():
 def test_prove_lm_proof_verifies_and_tampered_ones_do_not(proved):
     _, out_val, _, vk, keys, _, proof, phases = proved
     assert set(phases) == PHASES
-    assert (keys.M, keys.B1, keys.B2, keys.nwin) == (8, 64, 64, 95)
+    assert (keys.M, keys.B1, keys.B2g, keys.nwin) == (8, 64, 64, 95)
     assert keys.ops1.b3 == -3 and keys.ops2.b3 == 12
     assert groth16.verify(vk, [out_val], proof)
     assert not groth16.verify(vk, [(out_val + 1) % bw6.R], proof)

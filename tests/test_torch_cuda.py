@@ -486,3 +486,153 @@ def test_device_merkle_tree_on_the_card_equals_the_cpu_one():
     assert len(card.levels) == len(cpu.levels) == 7
     for a, b in zip(card.levels, cpu.levels):
         assert a.dtype == b.dtype and np.array_equal(a, b)
+
+
+def _affine_planes(g2: bool, B: int, seed: int, device: str):
+    """B distinct BLS12-381 G1 or G2 points as limb-major affine planes."""
+    rng = random.Random(seed)
+    curve, gen = (bls.G2, bls.G2_GEN) if g2 else (bls.G1, bls.G1_GEN)
+    P, step = curve.mul(rng.randrange(1, bls.R), gen), curve.mul(rng.randrange(1, bls.R), gen)
+    pts = []
+    for _ in range(B):
+        pts.append(P)
+        P = curve.add(P, step)
+
+    def dev(vals):
+        return torch.as_tensor(fs.to_lm(fs.BLS_FQ.to_mont_host(vals)).astype(np.int64),
+                               dtype=torch.int32, device=device)
+
+    if g2:
+        return (tuple(dev([p[0].coeffs[i].v for p in pts]) for i in range(2)),
+                tuple(dev([p[1].coeffs[i].v for p in pts]) for i in range(2)))
+    return dev([p[0].v for p in pts]), dev([p[1].v for p in pts])
+
+
+def _cpu(c):
+    return straus._map_coord(lambda t: t.cpu(), c)
+
+
+@pytest.mark.parametrize("g2", [False, True], ids=["g1", "g2"])
+def test_on_the_fly_msm_on_the_card_equals_plain_and_the_table_route(g2):
+    """window_sums and msm_program_chunked (1,024 lanes in 4 slices) on the
+    card equal their plain versions on the CPU limb for limb, and the table
+    route's MSM as points; each slice launches K1 once and the finish
+    twice."""
+    _need_card()
+    B, W = 1024, 64
+    X, Y = _affine_planes(g2, B, 30 + g2, "cuda")
+    z = torch.as_tensor(fs.to_lm(fs.ints_to_limbs(
+        [random.Random(40 + g2).randrange(bls.R) for _ in range(B)], 16)).astype(np.int64),
+        dtype=torch.int32, device="cuda")
+    ops = prove_lm.sw_ops(groth16.pairing_config("bls12_381"), g2, "cuda")
+    cpu_ops = prove_lm.sw_ops(groth16.pairing_config("bls12_381"), g2, "cpu")
+    S = straus.window_sums(ops, X, Y, z, W)
+    S_cpu = straus.window_sums(cpu_ops, _cpu(X), _cpu(Y), z.cpu(), W)
+    for g, w in zip(_flat(S), _flat(S_cpu)):
+        assert g.shape == (W, 24, 1) and torch.equal(g.cpu(), w)
+    k1_name = "select_reduce_fp2" if g2 else "select_reduce_fp"
+    fin_name = "msm_finish_fp2" if g2 else "msm_finish_fp"
+    before = dict(kernels.LAUNCHES)
+    got = straus.msm_program_chunked(ops, X, Y, z, W, max_lanes=256)
+    assert kernels.LAUNCHES[k1_name] == before[k1_name] + 4
+    assert kernels.LAUNCHES[fin_name] == before[fin_name] + 8
+    want = straus.msm_program_chunked(cpu_ops, _cpu(X), _cpu(Y), z.cpu(), W, max_lanes=256)
+    for g, w in zip(_flat(got), _flat(want)):
+        assert torch.equal(g.cpu(), w)
+    curve = bls.G2 if g2 else bls.G1
+    table = straus.msm_precomp_program(ops, straus.table_program(ops, X, Y), W, z)
+    joined = straus.horner_join(ops, S)
+    pts = [straus.projective_to_host(curve, _cpu(P)) for P in (got, table, joined)]
+    assert pts[0] is not None and pts[0] == pts[1] == pts[2]
+
+
+@pytest.mark.parametrize("g2", [False, True], ids=["g1", "g2"])
+def test_bool_msm_on_the_card_equals_plain(g2):
+    """The masked lane reduction on the card (K2 only) equals its plain
+    version on the CPU limb for limb, over 3 rows of 512 lanes on G1."""
+    _need_card()
+    B = 512
+    X, Y = _affine_planes(g2, B, 50 + g2, "cuda")
+    rows = 1 if g2 else 3
+    if not g2:
+        X, Y = (torch.stack([torch.roll(c, 5 * r, -1) for r in range(rows)]) for c in (X, Y))
+    mask = torch.randint(0, 2, (rows, B) if not g2 else (B,), dtype=torch.int32, device="cuda")
+    ops = prove_lm.sw_ops(groth16.pairing_config("bls12_381"), g2, "cuda")
+    cpu_ops = prove_lm.sw_ops(groth16.pairing_config("bls12_381"), g2, "cpu")
+    before = dict(kernels.LAUNCHES)
+    got = straus.bool_msm_program(ops, X, Y, mask)
+    launched = {k for k, v in kernels.LAUNCHES.items() if v != before[k]}
+    assert launched == {"mont_mul"}
+    want = straus.bool_msm_program(cpu_ops, _cpu(X), _cpu(Y), mask.cpu())
+    for g, w in zip(_flat(got), _flat(want)):
+        assert torch.equal(g.cpu(), w)
+
+
+def test_options_proof_on_the_card_equals_the_cpu_one():
+    """The toy cube circuit with one boolean witness: a precompute=False,
+    merge_bool=False key proves on the card as on the CPU (plain versions)
+    from the same rng, equal to the card's table-route proof; it verifies
+    and a wrong public input does not."""
+    _need_card()
+    from zkmember_tpu_torch.r1cs import gadgets as g
+    from zkmember_tpu_torch.r1cs.cs import ConstraintSystem
+    from zkmember_tpu_torch.utils import rng as frng
+
+    cs = ConstraintSystem(bls.Fr)
+    out_val = pow(8, 3, bls.R)
+    out = g.FpVar.new_input(cs, out_val)
+    w = g.FpVar.new_witness(cs, 8)
+    (w * w * w).enforce_equal(out, "cube")
+    b1 = g.Boolean.new_witness(cs, 1)
+    b1.select(out, g.FpVar.constant(cs, 0)).enforce_equal(out, "sel")
+    pk, vk = groth16.setup(cs, "bls12_381", frng.test_rng(), device="cpu")
+    opts = dict(cs=cs, precompute=False, merge_bool=False)
+    card = prove_lm.Groth16KeysLM(pk, "cuda", **opts)
+    assert card.has_bool and card.g1_tab is None and card.g2_tab is None
+    before = dict(kernels.LAUNCHES)
+    proof = prove_lm.prove(card, cs, rng=frng.test_rng(7))
+    launched = {k for k, v in kernels.LAUNCHES.items() if v != before[k]}
+    assert launched == {"mont_mul", "select_reduce_fp", "select_reduce_fp2", "msm_finish_fp",
+                        "msm_finish_fp2"}
+    cpu = prove_lm.prove(prove_lm.Groth16KeysLM(pk, "cpu", **opts), cs, rng=frng.test_rng(7))
+    table = prove_lm.prove(prove_lm.Groth16KeysLM(pk, "cuda"), cs, rng=frng.test_rng(7))
+    assert (proof.a, proof.b, proof.c) == (cpu.a, cpu.b, cpu.c) == (table.a, table.b, table.c)
+    assert groth16.verify(vk, [out_val], proof)
+    assert not groth16.verify(vk, [(out_val + 1) % bls.R], proof)
+
+
+def test_kzg_past_the_budget_on_the_card_equals_the_table_route(monkeypatch):
+    """kzg.setup(200) with a budget below D + 1: commitments run
+    msm_program on the card in slices of 64 lanes (K1 once a slice, no
+    SRS table) and equal the table route's."""
+    _need_card()
+    import dataclasses
+
+    from zkmember_tpu_torch.snark import kzg
+    from zkmember_tpu_torch.utils import rng as frng
+
+    pp = kzg.setup(200, rng=frng.test_rng(), device="cuda")
+    otf = dataclasses.replace(pp, max_tab_lanes=200)
+    rng = random.Random(13)
+    polys = [([rng.randrange(bls.R) for _ in range(k)], bound)
+             for k, bound in ((201, None), (70, 100), (3, None))]
+    monkeypatch.setattr(kzg, "MSM_CHUNK", 64)
+    before = kernels.LAUNCHES["select_reduce_fp"]
+    got = kzg.commit_many(otf, polys)  # 4 + 2 + 2 + 1 slices
+    assert kernels.LAUNCHES["select_reduce_fp"] == before + 9 and otf.table is None
+    want = kzg.commit_many(pp, polys)
+    assert [(c.c, c.shifted) for c in got] == [(c.c, c.shifted) for c in want]
+
+
+def test_table_budget_on_the_card_is_an_eighth_of_its_memory():
+    """Keys and SRSs keep Straus tables within an eighth of the card's
+    memory: a default SRS's lane budget is the powers whose table fits it."""
+    _need_card()
+    from zkmember_tpu_torch.snark import kzg
+    from zkmember_tpu_torch.utils import rng as frng
+
+    budget = straus.table_budget("cuda")
+    assert budget == torch.cuda.get_device_properties(0).total_memory // 8
+    pp = kzg.setup(8, rng=frng.test_rng(), device="cuda")
+    ops = prove_lm.sw_ops(groth16.pairing_config("bls12_381"), False, "cuda")
+    assert pp.max_tab_lanes == budget // straus.table_bytes(ops, 1, 1) and kzg.uses_table(pp)

@@ -2,7 +2,7 @@
 
 A fresh interpreter imports zkmember_tpu_torch, loads a key from a
 checkpoint and proves the toy cube circuit on the CPU with the limb-major
-prover, runs the port's own setup and v1 prover on it, commits to a
+prover, builds a key with the reference's options from it, runs the port's own setup and v1 prover on it, commits to a
 polynomial with the port's KZG, loads the CLI, the bench harness and
 Marlin, hashes a 4-leaf Merkle tree with the device hash on the CPU (and
 loads ``entry``), and then reports what it imported.  An AST scan checks every
@@ -36,6 +36,8 @@ w = g.FpVar.new_witness(cs, 3)
 (w * w * w).enforce_equal(out, "cube")
 keys = checkpoint.load_groth16_keys(sys.argv[1], device="cpu")
 proof = prove_lm.prove(keys, cs, rng=frng.test_rng(3))
+okeys = prove_lm.Groth16KeysLM(keys.pk, "cpu", cs=cs, min_lanes=8, precompute=False,
+                               merge_bool=False)
 pk, vk = groth16.setup(cs, "bls12_381", frng.test_rng(), device="cpu")
 proof_v1 = groth16.prove(pk, cs, rng=frng.test_rng(4), device="cpu")
 from zkmember_tpu_torch.app import bench_harness, cli
@@ -55,6 +57,7 @@ print(json.dumps({
     "tree": dev_tree.root() == host_tree.root() and callable(entry.entry)
             and callable(pedersen.hash_bits_device),
     "kzg": kzg.check(pp, kzg.commit(pp, [1, 2, 3]), 5, v, opening),
+    "options": okeys.g1_tab is None and okeys.g2_tab is None and okeys.Bb == 8,
     "ok": groth16.verify(keys.pk.vk, [27], proof),
     "bad": groth16.verify(keys.pk.vk, [28], proof),
     "ok_v1": groth16.verify(vk, [27], proof_v1),
@@ -93,7 +96,7 @@ def test_port_proves_without_jax(tmp_path):
     )
     assert res.returncode == 0, res.stderr[-4000:]
     got = json.loads(res.stdout.strip().splitlines()[-1])
-    assert got == {"tree": True, "kzg": True, "ok": True, "bad": False, "ok_v1": True, "bad_v1": False,
+    assert got == {"tree": True, "kzg": True, "options": True, "ok": True, "bad": False, "ok_v1": True, "bad_v1": False,
                    "modules": []}
 
 

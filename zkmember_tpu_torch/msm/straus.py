@@ -1,17 +1,28 @@
-"""Straus MSM on limb-major point planes, precomputed-table path
-(counterpart of the main-path subset of zkmember_tpu.msm.straus).
+"""Straus MSM on limb-major point planes (counterpart of zkmember_tpu.msm.straus).
 
     sum_i s_i P_i  =  sum_w 16^w ( sum_i T_i[d_{i,w}] )
 
-with T_i = [0..15] P_i the per-point table (built once per proving key by
-``table_program``, in K1's packed layout) and d_{i,w} the w-th 4-bit
-digit of s_i.  Kernel K1 (``select_reduce_cuda``) selects and reduces
-each lane tile per window; ``tree_reduce_lanes`` finishes the narrow tail
-and ``horner_join`` folds the window sums, both in one kernel on the card (``finish_cuda``).  Zero
+with T_i = [0..15] P_i the per-point table (``table_program``, in K1's
+packed layout) and d_{i,w} the w-th 4-bit digit of s_i.  Kernel K1
+(``select_reduce_cuda``) selects and reduces each lane tile per window;
+``tree_reduce_lanes`` finishes the narrow tail and ``horner_join`` folds
+the window sums, both in one kernel on the card (``finish_cuda``).  Zero
 scalars select entry 0, the identity, so padded lanes vanish.
+
+Two routes share that machinery:
+  - precomputed: the table is built once per proving key and kept
+    (``msm_precomp_program`` / ``msm_precomp_batch``);
+  - on the fly: each call builds the table of its own lanes and drops it
+    on return (``window_sums``, ``msm_program``, ``msm_program_chunked``),
+    for keys and SRSs whose tables would not fit the table budget
+    (``table_budget``).
+Boolean scalars skip the windows: one masked select and one lane
+reduction (``bool_msm_program``).
 """
 
 from __future__ import annotations
+
+import os
 
 import numpy as np
 import torch
@@ -79,9 +90,35 @@ def small_table(ops, P1):
 
 def table_program(ops, X, Y):
     """Straus table of the affine points (X, Y) (..., n, B), as K1's packed
-    records (16, R, B, 3 C n/2) (``select_reduce_cuda.pack_records``); it
-    depends only on the proving key, so callers build it once."""
+    records (16, R, B, 3 C n/2) (``select_reduce_cuda.pack_records``).  It
+    depends only on the points: a proving key's is built once; the
+    on-the-fly route builds one per call."""
     return select_reduce_cuda.pack_records(small_table(ops, cdv.swp_from_affine(ops, X, Y)))
+
+
+def table_bytes(ops, R: int, B: int) -> int:
+    """Bytes of ``table_program``'s records for R rows of B lanes: 16
+    entries of 3 projective coordinates, two 16-bit limbs a word."""
+    fp2 = isinstance(ops.b3, tuple)
+    n = (ops.F.spec.base if fp2 else ops.F.spec).n
+    return TABLE * R * B * 3 * (2 if fp2 else 1) * n * 2
+
+
+def table_budget(device) -> int:
+    """Bytes of Straus tables that a proving key or an SRS keeps on
+    `device`: an eighth of its memory (the card's; the host's for the CPU).
+    A table's build holds its 16 unpacked entries, their stack and the
+    packed records at once: its peak is about 5.4 times the table (the
+    depth-32 G1 table on an H100, ``chip_smoke.py``'s scale phase), so
+    building the largest table the budget allows takes about two thirds
+    of the device and leaves room for a proof's working set.  Past the
+    budget, MSMs take the on-the-fly route."""
+    device = torch.device(device)
+    if device.type == "cuda":
+        total = torch.cuda.get_device_properties(device).total_memory
+    else:
+        total = os.sysconf("SC_PAGE_SIZE") * os.sysconf("SC_PHYS_PAGES")
+    return total // 8
 
 
 def digits_from_limbs(z, nwin: int):
@@ -112,6 +149,71 @@ def _lanes_leading(S):
     while isinstance(c, tuple):
         c = c[0]
     return c.shape[0]
+
+
+def window_sums(ops, X, Y, z, nwin: int):
+    """Per-window sums of the MSM of affine points (X, Y) ([R,] n, B) with
+    canonical scalar limbs z ([R,] nl, B): coords (W, [R,] n, 1), most
+    significant window first.  The lane-parallel half of the on-the-fly
+    MSM: this call's table (``table_program``), K1 over it, then each
+    window's K1 tile sums reduced to one lane (``tree_reduce_lanes`` over
+    K2).  The table is dropped on return."""
+    digits = digits_from_limbs(z, nwin).contiguous()  # (W, [R,] B)
+    squeeze = digits.ndim == 2  # no row axis: R = 1
+    if squeeze:
+        digits = digits[:, None]
+    S = select_reduce_cuda.select_reduce(ops, table_program(ops, X, Y), digits)  # (W, R, n, NT)
+    S = tree_reduce_lanes(ops, S)
+    if squeeze:
+        S = tuple(_map_coord(lambda c: c[:, 0], x) for x in S)
+    return S
+
+
+def msm_program(ops, X, Y, z, nwin: int, mark=None, prefix: str = ""):
+    """On-the-fly MSM of affine points (X, Y) ([R,] n, B) with canonical
+    scalar limbs z ([R,] nl, B): this call's table, then K1, then the
+    finish; projective coords ([R,] n, 1), equal as points to
+    ``horner_join(ops, window_sums(...))``.  Zero scalars (padded lanes,
+    whatever their coordinates) select the identity.  mark/prefix as in
+    ``msm_precomp_program``, with one more stage, prefix + "table".  (The
+    reference's ``msm_kernel``; eager PyTorch has no separate jitted entry.)"""
+    tab = table_program(ops, X, Y)
+    if mark is not None:
+        mark(prefix + "table")
+    return msm_precomp_program(ops, tab, nwin, z, mark, prefix)
+
+
+def msm_program_chunked(ops, X, Y, z, nwin: int, max_lanes: int = 1 << 18, mark=None,
+                        prefix: str = ""):
+    """``msm_program`` over slices of at most `max_lanes` lanes, the
+    partial points added with one complete addition each: a call's
+    transient table is 48 times its slice of point planes, so wide MSMs
+    run slice by slice."""
+    B = _lanes(X)
+    if B <= max_lanes:
+        return msm_program(ops, X, Y, z, nwin, mark, prefix)
+    if B % max_lanes:
+        raise ValueError(f"{B} lanes do not split into slices of {max_lanes}")
+    acc = None
+    for s in range(0, B, max_lanes):
+        def sl(c):
+            return _map_coord(lambda a: a[..., s : s + max_lanes], c)
+
+        part = msm_program(ops, sl(X), sl(Y), sl(z), nwin, mark, prefix)
+        acc = part if acc is None else cdv.swp_add(ops, acc, part)
+    if mark is not None:
+        mark(prefix + "chunk_add")
+    return acc
+
+
+def bool_msm_program(ops, X, Y, mask):
+    """MSM with 0/1 scalars: affine points (X, Y) ([R,] n, B), mask ([R,] B)
+    nonzero where the scalar is 1.  One masked select to the identity and
+    one lane reduction (``tree_reduce_lanes``, B - 1 complete additions on
+    K2): no table and no K1.  Returns projective coords ([R,] n, 1)."""
+    P = cdv.swp_from_affine(ops, X, Y)
+    ident = cdv.swp_identity(ops, ops.F.batch_shape(X))
+    return tree_reduce_lanes(ops, cdv.swp_select(ops, mask != 0, P, ident))
 
 
 def msm_precomp_program(ops, tab, nwin: int, z, mark=None, prefix: str = ""):

@@ -10,14 +10,26 @@ the reference's Marlin.  Host/device split:
   host    the witness polynomial's synthetic division and the pairing
           checks (O(N) bignum / O(1) pairings)
 
-The SRS table has R = ceil((D + 1) / w) rows of w lanes on K1's row axis:
-power i sits at row i // w, lane i % w.  A commitment of n coefficients
-at offset o puts its scalars at lanes [o, o + n) and zero digits elsewhere
-(entry 0, the identity), launches K1 once over the rows that range
-touches and the finish once over them, and adds the row sums on the host.
-The reference takes its table route only on a TPU and cuts a commitment
-into 2^14-lane chunks, one program each; the port takes the table route on
-every device.  Commitments are compared as points.
+Two routes, chosen by the SRS's lane budget ``max_tab_lanes`` (by
+default the powers whose table fits ``straus.table_budget`` of the SRS's
+device; the reference reads 2^19 from ``ZKMEMBER_TAB_LANES``):
+
+  table    D + 1 within the budget: the SRS table has R = ceil((D + 1) / w)
+           rows of w lanes on K1's row axis, power i at row i // w, lane
+           i % w.  A commitment of n coefficients at offset o puts its
+           scalars at lanes [o, o + n) and zero digits elsewhere (entry 0,
+           the identity); a batch launches K1 once over the rows its
+           commitments touch and the finish once over them, and the row
+           sums are added on the host.
+  on the fly  past the budget no table is built: each commitment runs
+           ``straus.msm_program`` over its powers in slices of MSM_CHUNK
+           lanes (the reference's ``_MSM_CHUNK``), each slice building its
+           own transient table, and the slices' points are added on the
+           host.
+
+The reference takes its table route only on a TPU, in 2^14-lane chunks;
+the port takes it on every device within the budget.  Commitments are
+compared as points.
 
 Degree bounds use shifted powers: a commitment to p with bound d also
 carries a commitment to x^(D-d) p(x) under the top SRS powers, and the
@@ -39,6 +51,7 @@ from zkmember_tpu_torch.snark.groth16 import pairing_config
 from zkmember_tpu_torch.utils import rng as frng
 
 MAX_LANES = 1 << 14  # lanes of one SRS table row
+MSM_CHUNK = 1 << 18  # lanes of one on-the-fly MSM past the budget
 
 
 @dataclass
@@ -49,6 +62,7 @@ class UniversalParams:
     h: tuple  # G2
     beta_h: tuple  # beta G2
     g: tuple  # G1 generator
+    max_tab_lanes: int  # the table route while D + 1 fits it
     table: tuple | None = None  # (w, K1 records of the SRS in rows of w lanes), once built
 
     @property
@@ -68,10 +82,13 @@ class OpeningProof:
     w: tuple  # G1 affine witness commitment
 
 
-def setup(max_degree: int, curve: str = "bls12_381", rng=None, device=None) -> UniversalParams:
+def setup(max_degree: int, curve: str = "bls12_381", rng=None, device=None,
+          max_tab_lanes: int | None = None) -> UniversalParams:
     """Universal SRS: powers of a fresh beta in G1 (device fixed-base
     multiplication, K3 on the card) and (h, beta h) in G2.  rng defaults to
-    OS entropy; tests and the harness pass utils.rng.test_rng()."""
+    OS entropy; tests and the harness pass utils.rng.test_rng().
+    max_tab_lanes: the lane budget of the SRS table (module docstring);
+    None gives the lanes whose table fits the device's table budget."""
     cfg = pairing_config(curve)
     rng = rng or frng.secure_rng()
     dev = devmod.resolve(device)
@@ -84,6 +101,9 @@ def setup(max_degree: int, curve: str = "bls12_381", rng=None, device=None) -> U
     x, y, inf = groth16._fixed_base_mul_device(cfg, cfg.F1(dev), mod.G1_GEN, mod.G1, pows)
     if inf.any():
         raise ValueError("an SRS power is the identity")
+    if max_tab_lanes is None:
+        ops = prove_lm.sw_ops(cfg, False, dev)
+        max_tab_lanes = straus.table_budget(dev) // straus.table_bytes(ops, 1, 1)
     return UniversalParams(
         curve=curve,
         max_degree=max_degree,
@@ -91,7 +111,13 @@ def setup(max_degree: int, curve: str = "bls12_381", rng=None, device=None) -> U
         h=mod.G2_GEN,
         beta_h=mod.G2.mul(beta, mod.G2_GEN),
         g=mod.G1_GEN,
+        max_tab_lanes=max_tab_lanes,
     )
+
+
+def uses_table(pp: UniversalParams) -> bool:
+    """Whether commitments under `pp` take the table route."""
+    return pp.max_degree + 1 <= pp.max_tab_lanes
 
 
 def table_lanes(max_degree: int) -> int:
@@ -123,17 +149,18 @@ def _msm_powers_many(pp: UniversalParams, items, lanes: int | None = None) -> li
     host affine points (None for the identity).  coeffs: list[int] or
     (n, nl) u64 Montgomery rows (the native rows of Marlin's openings).
 
-    Each item's scalars take the table rows of w = `lanes` lanes (default
-    ``table_lanes(D)``; tests pass fewer to force several rows) that
-    [offset, offset + n) touches; those rows of every item stand side by
-    side on K1's row axis (the table rows gathered to match), so the batch
-    is ONE K1 launch and ONE finish; each item's row sums are added on the
-    host."""
+    Table route: each item's scalars take the table rows of w = `lanes`
+    lanes (default ``table_lanes(D)``; tests pass fewer to force several
+    rows) that [offset, offset + n) touches; those rows of every item stand
+    side by side on K1's row axis (the table rows gathered to match), so
+    the batch is ONE K1 launch and ONE finish; each item's row sums are
+    added on the host.  On-the-fly route (past ``pp.max_tab_lanes``):
+    ``_msm_powers_otf`` in slices of MSM_CHUNK lanes (`lanes` is the
+    table route's)."""
     cfg = pairing_config(pp.curve)
     fr = cfg.fr_spec
     nl = (fr.n + 3) // 4
-    w = lanes or table_lanes(pp.max_degree)
-    planes, row_ids, spans = [], [], []
+    planes, offsets = [], []
     for coeffs, offset in items:
         if isinstance(coeffs, np.ndarray):
             rows = zknative.NativeField.get(fr.p, fr.n).from_mont(coeffs)  # canonical u64
@@ -143,14 +170,22 @@ def _msm_powers_many(pp: UniversalParams, items, lanes: int | None = None) -> li
         if offset < 0 or offset + n > pp.max_degree + 1:
             raise ValueError(f"{n} coefficients at offset {offset} exceed the SRS degree "
                              f"{pp.max_degree}")
+        planes.append(zknative.u64_to_u16_planes(rows)[:, : fr.n])  # (n, n16)
+        offsets.append(offset)
+    if not uses_table(pp):
+        return _msm_powers_otf(pp, planes, offsets)
+    w = lanes or table_lanes(pp.max_degree)
+    zs, row_ids, spans = [], [], []
+    for z16, offset in zip(planes, offsets):
+        n = z16.shape[0]
         if n == 0:
             spans.append((len(row_ids), len(row_ids)))
             continue
         r0, r1 = offset // w, (offset + n - 1) // w + 1
         z = np.zeros(((r1 - r0) * w, fr.n), np.int32)
         start = offset - r0 * w
-        z[start : start + n] = zknative.u64_to_u16_planes(rows)[:, : fr.n]
-        planes.append(z.reshape(r1 - r0, w, fr.n))
+        z[start : start + n] = z16
+        zs.append(z.reshape(r1 - r0, w, fr.n))
         spans.append((len(row_ids), len(row_ids) + r1 - r0))
         row_ids.extend(range(r0, r1))
     if not row_ids:
@@ -158,13 +193,18 @@ def _msm_powers_many(pp: UniversalParams, items, lanes: int | None = None) -> li
     tab = _powers_tab(pp, w)
     if row_ids != list(range(tab.shape[1])):
         tab = tab[:, row_ids].contiguous()  # (16, rows, w, 3 n/2)
-    z = np.concatenate(planes).transpose(0, 2, 1)  # (rows, n, w)
+    z = np.concatenate(zs).transpose(0, 2, 1)  # (rows, n, w)
     ops = prove_lm.sw_ops(cfg, False, pp.device)
     nwin = (cfg.r.bit_length() + straus.WINDOW_BITS - 1) // straus.WINDOW_BITS
     acc = straus.msm_precomp_program(ops, tab, nwin,
                                      torch.as_tensor(np.ascontiguousarray(z), device=pp.device))
     X, Y, Z = torch.stack(acc).cpu().numpy()  # one device -> host copy
-    curve = cfg.mod.G1
+    return _host_sums(cfg.mod.G1, X, Y, Z, spans)
+
+
+def _host_sums(curve, X, Y, Z, spans) -> list:
+    """Each span [a, b) of projective rows (X, Y, Z) (rows, n, 1) summed on
+    the host as one affine point (None for the identity)."""
     out = []
     for a, b in spans:
         total = None
@@ -172,6 +212,37 @@ def _msm_powers_many(pp: UniversalParams, items, lanes: int | None = None) -> li
             total = curve.add(total, straus.projective_to_host(curve, (X[i], Y[i], Z[i])))
         out.append(total)
     return out
+
+
+def _msm_powers_otf(pp: UniversalParams, planes, offsets) -> list:
+    """The on-the-fly route: item k's scalars planes[k] (n, n16) against
+    powers [offsets[k], offsets[k] + n), in slices of at most MSM_CHUNK lanes,
+    each slice padded to a power of two of at least the kernel's 64 lanes
+    (zero scalars select the identity) and run through
+    ``straus.msm_program``, which builds and drops its own table.  One
+    device -> host copy for every slice; the slices' points are added on
+    the host."""
+    cfg = pairing_config(pp.curve)
+    fr = cfg.fr_spec
+    ops = prove_lm.sw_ops(cfg, False, pp.device)
+    nwin = (cfg.r.bit_length() + straus.WINDOW_BITS - 1) // straus.WINDOW_BITS
+    pad = torch.nn.functional.pad
+    outs, spans = [], []
+    for z16, offset in zip(planes, offsets):
+        first = len(outs)
+        for s in range(0, z16.shape[0], MSM_CHUNK):
+            e = min(s + MSM_CHUNK, z16.shape[0])
+            width = max(prove_lm.MIN_LANES, prove_lm._next_pow2(e - s))
+            X, Y = (pad(c[offset + s : offset + e].T, (0, width - (e - s)))
+                    for c in (pp.powers.x, pp.powers.y))  # (n, width)
+            z = np.zeros((fr.n, width), np.int32)
+            z[:, : e - s] = z16[s:e].T
+            outs.append(straus.msm_program(ops, X, Y, torch.as_tensor(z, device=pp.device), nwin))
+        spans.append((first, len(outs)))
+    if not outs:
+        return [None] * len(spans)
+    X, Y, Z = torch.stack([torch.stack(P) for P in outs], 1).cpu().numpy()  # one copy
+    return _host_sums(cfg.mod.G1, X, Y, Z, spans)
 
 
 def _msm_powers(pp: UniversalParams, coeffs, offset: int = 0):

@@ -12,9 +12,15 @@ Pipeline for a batch of P proofs over one key (``prove`` is a batch of one):
   device  one packed device -> host copy of every accumulator
   host    randomized assembly (A, B, C from r, s), per proof
 
-Boolean witness lanes are merged into the general Straus lanes (0/1
-scalars select table entries 0/1).  Zero-padded lanes select entry 0, the
-identity, and vanish.
+By default the boolean witness lanes are merged into the general Straus
+lanes (0/1 scalars select table entries 0/1) and the key keeps both
+tables.  A key's options (``Groth16KeysLM``) give ``prove`` two more
+routes, one proof at a time: past the table budget, or with
+``precompute=False``, each MSM builds its table on the fly
+(``straus.msm_program_chunked``); with ``merge_bool=False`` the boolean
+class runs as two masked lane reductions (``straus.bool_msm_program``)
+whose points the host adds to the general ones.  Zero-padded lanes select
+entry 0, the identity, and vanish.
 """
 
 from __future__ import annotations
@@ -74,12 +80,30 @@ def _dev_planes(c, B, device):
 
 
 class Groth16KeysLM:
-    """Limb-major proving-key planes on the device, plus the Straus tables.
+    """Limb-major proving-key planes on the device, the static scalar
+    classes, and the Straus tables where they are kept.
 
-    Lanes: the G1 rows [a, b1, l, h] share max(M, MIN_LANES) lanes; the G2
-    b-query takes the next power of two of its point count."""
+    Lanes: the G1 general rows [a, b1, l, h] share B1 = max(M, MIN_LANES)
+    lanes; the G2 general b-query takes B2g lanes, the next power of two
+    of its point count (at least MIN_LANES: K1 reads both).  With
+    ``merge_bool=False`` the boolean witness class (``cs.boolean_vars``)
+    leaves the general rows for its own planes: G1 rows [a, b1, l] of Bb
+    lanes and the G2 b-query of B2b lanes, summed by masked lane
+    reductions (``straus.bool_msm_program``) with no table and no K1."""
 
-    def __init__(self, pk: "groth16.ProvingKey", device=None):
+    def __init__(self, pk: "groth16.ProvingKey", device=None, *, cs: ConstraintSystem | None = None,
+                 min_lanes: int = 1, precompute: bool = True, merge_bool: bool = True):
+        """min_lanes: pad every lane count to at least this (the device count
+        of a sharded prover, so every plane divides evenly).
+        precompute: keep the Straus tables, G1's and then G2's, each while
+        the kept tables fit the device's ``straus.table_budget``; otherwise
+        every proof builds the table of each MSM's lanes on the fly and
+        drops it (``straus.msm_program_chunked``).
+        merge_bool: keep the boolean witness class in the general lanes
+        (0/1 scalars select table entries 0/1); False splits it out and
+        needs the circuit `cs` for its boolean variables."""
+        if not merge_bool and cs is None:
+            raise ValueError("merge_bool=False needs the circuit (cs=...) for its boolean variables")
         self.device = devmod.resolve(device)
         self.pk = pk
         cfg = groth16.pairing_config(pk.curve)
@@ -103,48 +127,98 @@ class Groth16KeysLM:
                 "G1 rows hold at most M lanes"
             )
         self.domain_lm = nttlm.DomainLM.get(self.fr, M, self.device)
-        B1 = max(M, MIN_LANES)
+        B1 = max(M, MIN_LANES, min_lanes)
         self.B1 = B1
         dev = self.device
 
-        def rows(attr):
-            pa = getattr(pk, attr)
-            return _dev_planes(pa.x, B1, dev), _dev_planes(pa.y, B1, dev)
+        boolean = frozenset() if merge_bool else frozenset(cs.boolean_vars)
 
-        planes = [rows(a) for a in ("a_query", "b_g1_query", "l_query", "h_query")]
+        def split(nz, to_abs=lambda i: i):
+            """A query's nonzero columns -> (general, boolean) absolute
+            columns and their positions in the query, in the key's order."""
+            gen = [k for k, i in enumerate(nz) if to_abs(i) not in boolean]
+            boo = [k for k, i in enumerate(nz) if to_abs(i) in boolean]
+            cols = np.asarray([to_abs(i) for i in nz], np.int64)
+            return cols[gen], cols[boo], np.asarray(gen, np.int64), np.asarray(boo, np.int64)
+
+        a_gen, a_boo, a_gt, a_bt = split(pk.a_nonzero)
+        b_gen, b_boo, b_gt, b_bt = split(pk.b_nonzero)
+        l_gen, l_boo, l_gt, l_bt = split(pk.l_nonzero, to_abs=lambda i: i + ni)
+
+        def rows(attr, take, B):
+            pa = getattr(pk, attr)
+            return (_dev_planes(_take(pa.x, take), B, dev),
+                    _dev_planes(_take(pa.y, take), B, dev))
+
+        # G1 general planes: rows [a, b1, l, h], B1 lanes
+        planes = [rows("a_query", a_gt, B1), rows("b_g1_query", b_gt, B1),
+                  rows("l_query", l_gt, B1), rows("h_query", None, B1)]
         self.g1_X = torch.stack([p[0] for p in planes])  # (4, n, B1)
         self.g1_Y = torch.stack([p[1] for p in planes])
         # absolute z columns of the a, b1, l rows (the h row takes H's limbs)
-        self.gen_cols = [
-            np.asarray(pk.a_nonzero, np.int64),
-            np.asarray(pk.b_nonzero, np.int64),
-            np.asarray(pk.l_nonzero, np.int64) + ni,
-        ]
+        self.gen_cols = [a_gen, b_gen, l_gen]
 
-        B2 = max(MIN_LANES, _next_pow2(max(len(pk.b_nonzero), 1)))
-        self.B2 = B2
-        self.g2_X = _dev_planes(pk.b_g2_query.x, B2, dev)
-        self.g2_Y = _dev_planes(pk.b_g2_query.y, B2, dev)
-        self.b_cols = np.asarray(pk.b_nonzero, np.int64)
+        # G1 boolean planes: rows [a, b1, l], Bb lanes
+        Bb = max(min_lanes, _next_pow2(max(len(a_bt), len(b_bt), len(l_bt), 1)))
+        self.Bb = Bb
+        self.bool_cols = [a_boo, b_boo, l_boo]
+        self.has_bool = any(len(c) for c in self.bool_cols)
+        if self.has_bool:
+            planes = [rows("a_query", a_bt, Bb), rows("b_g1_query", b_bt, Bb),
+                      rows("l_query", l_bt, Bb)]
+            self.g1b_X = torch.stack([p[0] for p in planes])  # (3, n, Bb)
+            self.g1b_Y = torch.stack([p[1] for p in planes])
+
+        # G2 (b-query): general B2g lanes (K1 reads them), boolean B2b lanes
+        B2g = max(min_lanes, MIN_LANES, _next_pow2(max(len(b_gt), 1)))
+        B2b = max(min_lanes, _next_pow2(max(len(b_bt), 1)))
+        self.B2g, self.B2b = B2g, B2b
+        self.g2_X, self.g2_Y = rows("b_g2_query", b_gt, B2g)
+        if self.has_bool:
+            self.g2b_X, self.g2b_Y = rows("b_g2_query", b_bt, B2b)
+        self.b_cols, self.b_bool_cols = b_gen, b_boo
+
+        # The tables are 48 times the point planes (16 entries x 3 projective
+        # coordinates): kept only within the device's table budget.
+        budget = straus.table_budget(dev)
+        g1_bytes = straus.table_bytes(self.ops1, 4, B1)
+        self._want_g1_tab = precompute and g1_bytes <= budget
+        if self._want_g1_tab:
+            budget -= g1_bytes
+        self._want_g2_tab = precompute and straus.table_bytes(self.ops2, 1, B2g) <= budget
         self._g1_tab = None
         self._g2_tab = None
 
     def build_tables(self):
-        """Build the Straus tables [0..15] P of both key point sets (once)."""
-        if self._g1_tab is None:
+        """Build the wanted Straus tables [0..15] P of the key's general
+        point sets (once)."""
+        if self._want_g1_tab and self._g1_tab is None:
             self._g1_tab = straus.table_program(self.ops1, self.g1_X, self.g1_Y)
-        if self._g2_tab is None:
+        if self._want_g2_tab and self._g2_tab is None:
             self._g2_tab = straus.table_program(self.ops2, self.g2_X, self.g2_Y)
 
     @property
     def g1_tab(self):
+        """The G1 table, built on first use; None when the key keeps none."""
         self.build_tables()
         return self._g1_tab
 
     @property
     def g2_tab(self):
+        """The G2 table, built on first use; None when the key keeps none."""
         self.build_tables()
         return self._g2_tab
+
+
+def _take(c, idx):
+    """Rows idx (all rows for None) of a (k, n) coordinate (Fp2 pairs aware)."""
+    if idx is None:
+        return c
+    if isinstance(c, tuple):
+        return tuple(_take(ci, idx) for ci in c)
+    if isinstance(c, torch.Tensor):
+        return c[torch.as_tensor(idx, device=c.device)]
+    return np.asarray(c)[idx]
 
 
 def _g1_point(cfg, xy):
@@ -223,8 +297,8 @@ def _to_dev(arr: np.ndarray, device) -> torch.Tensor:
 
 
 def warm(keys: Groth16KeysLM):
-    """Build the CUDA kernels (on a card) and the Straus tables; returns when
-    both are resident."""
+    """Build the CUDA kernels (on a card) and the Straus tables the key
+    keeps; returns when both are resident."""
     if keys.device.type == "cuda":
         kernels.library()
     keys.build_tables()
@@ -246,12 +320,15 @@ def _unflatten(x, it):
 
 def prove(keys: Groth16KeysLM, cs: ConstraintSystem, rng=None,
           phase_times: dict | None = None) -> "groth16.Proof":
-    """Groth16 prove on the limb-major stack: ``prove_batch`` of one proof.
-    rng defaults to OS entropy for the proof randomizers r, s; tests pass
+    """Groth16 prove on the limb-major stack, over any key: the kept tables
+    where the key has them, else the on-the-fly route, plus the boolean
+    MSMs of a ``merge_bool=False`` key.  On a key with tables and merged
+    boolean lanes it is ``prove_batch`` of one proof.  rng defaults to OS
+    entropy for the proof randomizers r, s; tests pass
     utils.rng.test_rng().  phase_times: a dict to receive host seconds per
     phase (synchronizing the card between phases); None (the default) adds
     no synchronization."""
-    return prove_batch(keys, [cs], rng, phase_times)[0]
+    return _prove(keys, [cs], rng, phase_times)[0]
 
 
 def prove_batch(keys: Groth16KeysLM, cs_list, rng=None,
@@ -260,8 +337,19 @@ def prove_batch(keys: Groth16KeysLM, cs_list, rng=None,
     axis): one H pipeline over (P, 3, n, M), one G1 and one G2 MSM over the
     shared Straus tables, one device -> host copy; witness and assembly run
     per proof on the host.  Every proof's (r, s) is drawn first, in order,
-    so P calls of ``prove`` with the same rng give the same proofs.
-    rng and phase_times as in ``prove`` (the phases hold all P proofs)."""
+    so P calls of ``prove`` with the same rng give the same proofs.  Needs
+    a key that keeps both tables and merges the boolean lanes (use
+    ``prove`` otherwise).  rng and phase_times as in ``prove`` (the phases
+    hold all P proofs)."""
+    if not (keys._want_g1_tab and keys._want_g2_tab):
+        raise ValueError("prove_batch needs a key that keeps its Straus tables "
+                         "(precompute=True, within the table budget)")
+    if keys.has_bool:
+        raise ValueError("prove_batch needs merged boolean lanes (merge_bool=True)")
+    return _prove(keys, cs_list, rng, phase_times)
+
+
+def _prove(keys: Groth16KeysLM, cs_list, rng, phase_times) -> list["groth16.Proof"]:
     from zkmember_tpu_torch import native as zknative
 
     if not cs_list:
@@ -289,37 +377,70 @@ def prove_batch(keys: Groth16KeysLM, cs_list, rng=None,
     h_limbs = nttlm.groth16_h_batch(keys.domain_lm, dabc)  # (P, n, M) canonical
     mark("h_pipeline")
 
-    zq, z2 = [], []
+    zq, z2, masks = [], [], []
     for cs in cs_list:
         z16 = _z_rows16(cs, fr)
         zq.append(np.stack([_pad_lanes(z16[:, cols], keys.B1) for cols in keys.gen_cols]))
-        z2.append(_pad_lanes(z16[:, keys.b_cols], keys.B2))
+        z2.append(_pad_lanes(z16[:, keys.b_cols], keys.B2g))
+        if keys.has_bool:  # a boolean scalar's value is its limb 0
+            masks.append((np.stack([_pad_lanes(z16[0, cols], keys.Bb) for cols in keys.bool_cols]),
+                          _pad_lanes(z16[0, keys.b_bool_cols], keys.B2b)))
     h_pad = torch.nn.functional.pad(h_limbs, (0, keys.B1 - M))
     z4 = torch.cat([_to_dev(np.stack(zq), dev), h_pad[:, None]], 1)  # (P, 4, n, B1)
-    z2 = _to_dev(np.stack(z2), dev)  # (P, n, B2)
+    z2 = _to_dev(np.stack(z2), dev)  # (P, n, B2g)
     mark("witness_planes")
 
-    out4 = straus.msm_precomp_batch(keys.ops1, keys.g1_tab, keys.nwin, z4, mark, "g1_")
-    out2 = straus.msm_precomp_batch(keys.ops2, keys.g2_tab, keys.nwin, z2, mark, "g2_")
+    out4 = _msm(keys.ops1, keys.g1_tab, keys.g1_X, keys.g1_Y, z4, keys.nwin, mark, "g1_")
+    out2 = _msm(keys.ops2, keys.g2_tab, keys.g2_X, keys.g2_Y, z2, keys.nwin, mark, "g2_",
+                max_lanes=1 << 17)  # Fp2 coordinates double a slice's table
+    outs = (out4, out2)
+    if keys.has_bool:  # one proof: prove_batch refuses boolean classes
+        g1m, g2m = (_to_dev(m, dev) for m in masks[0])
+        outs += (_lead(straus.bool_msm_program(keys.ops1, keys.g1b_X, keys.g1b_Y, g1m)),)
+        mark("g1_bool")
+        outs += (_lead(straus.bool_msm_program(keys.ops2, keys.g2b_X, keys.g2b_Y, g2m)),)
+        mark("g2_bool")
 
     # ONE device -> host copy for every accumulator of every proof
-    leaves = _leaves((out4, out2))
+    leaves = _leaves(outs)
     host = torch.cat([leaf.reshape(-1) for leaf in leaves]).cpu().numpy()
     parts, off = [], 0
     for leaf in leaves:
         parts.append(host[off : off + leaf.numel()].reshape(tuple(leaf.shape)))
         off += leaf.numel()
-    out4h, out2h = _unflatten((out4, out2), iter(parts))  # (P, 4, n, 1), (P, n, 1)
+    outs_h = _unflatten(outs, iter(parts))  # (P, 4, n, 1), (P, n, 1)[, (1, 3, n, 1), (1, n, 1)]
     mark("fetch")
 
     proofs = []
+    g1, g2 = cfg.mod.G1, cfg.mod.G2
     for p, (rr, ss) in enumerate(randomizers):
-        g1_accs = [straus.projective_to_host(cfg.mod.G1, tuple(c[p, i] for c in out4h))
+        g1_accs = [straus.projective_to_host(g1, tuple(c[p, i] for c in outs_h[0]))
                    for i in range(4)]
-        b2_acc = straus.projective_to_host(cfg.mod.G2, tuple(straus._row(c, p) for c in out2h))
+        b2_acc = straus.projective_to_host(g2, tuple(straus._row(c, p) for c in outs_h[1]))
+        if keys.has_bool:  # the boolean parts of a, b1, l and b2
+            for i in range(3):
+                g1_accs[i] = g1.add(g1_accs[i], straus.projective_to_host(
+                    g1, tuple(c[p, i] for c in outs_h[2])))
+            b2_acc = g2.add(b2_acc, straus.projective_to_host(
+                g2, tuple(straus._row(c, p) for c in outs_h[3])))
         proofs.append(_assemble(cfg, pk, rr, ss, g1_accs, b2_acc))
     mark("assemble")
     return proofs
+
+
+def _lead(P):
+    """Projective coords with a leading proof axis of one."""
+    return tuple(straus._map_coord(lambda c: c[None], x) for x in P)
+
+
+def _msm(ops, tab, X, Y, z, nwin: int, mark, prefix: str, max_lanes: int = 1 << 18):
+    """One MSM family of a proof batch: from the key's table `tab` where it
+    keeps one (all P proofs in one K1 launch), else on the fly in lane
+    slices of `max_lanes` (``straus.msm_program_chunked``, one proof).
+    z: (P, [R,] nl, B); returns projective coords (P, [R,] n, 1)."""
+    if tab is not None:
+        return straus.msm_precomp_batch(ops, tab, nwin, z, mark, prefix)
+    return _lead(straus.msm_program_chunked(ops, X, Y, z[0], nwin, max_lanes, mark, prefix))
 
 
 def _assemble(cfg, pk, rr, ss, g1_accs, b2_acc) -> "groth16.Proof":
