@@ -325,6 +325,68 @@ def phase_build():
         if any(k in line for k in ("registers", "spill", "Function properties")) \
                 or line.startswith("=="):
             print(f"#   {line.strip()}", file=sys.stderr)
+    RESULTS["finish_ptxas"] = finish_ptxas(kernels.BUILD_LOG)
+    for r in RESULTS["finish_ptxas"]:
+        log(f"finish kernel {r['kernel']}: {r['registers']} registers, spill stores "
+            f"{r['spill_stores']} B, loads {r['spill_loads']} B")
+
+
+def finish_ptxas(build_log: str) -> list:
+    """Registers and spill bytes of the finish's kernels (tail and join, each
+    variant) from ptxas -v in the build log; empty where this process did
+    not build the library."""
+    import re
+
+    out, keep, cur = [], False, None
+    for line in build_log.splitlines():
+        if line.startswith("=="):
+            keep = "msm_finish" in line
+        elif keep and "Compiling entry function" in line:
+            kind = "tail" if "tail_kernel" in line else "join" if "join_kernel" in line else None
+            m = re.search(r"FinishFieldILi(\d+)ELi(\d+)E", line)
+            cur = None
+            if kind and m:
+                n, c = 2 * int(m.group(1)), int(m.group(2))
+                cur = {"kernel": f"{kind} {'fp2' if c == 2 else 'fp'} n={n}"}
+        elif cur is not None and "spill stores" in line:
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+            cur["spill_stores"], cur["spill_loads"] = int(m.group(1)), int(m.group(2))
+        elif cur is not None and "Used" in line and "registers" in line:
+            cur["registers"] = int(re.search(r"Used (\d+) registers", line).group(1))
+            out.append(cur)
+            cur = None
+    return out
+
+
+def _finish_split(fn, waves: int | None = None, calls: int = 3) -> dict:
+    """Device milliseconds a call of each of the finish's two kernels
+    (tail_kernel, join_kernel) under torch.profiler over `calls` calls of
+    fn, the finish launched in turn (msm_finish_in_turn: the tail to its
+    end, then the join, so neither waits on the other), and the join's
+    microseconds a wave where `waves` (derived from the shape) is given.
+    None where three windows recorded neither."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
+
+    for _ in range(3):  # a window now and then records no kernel in a long run
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        split = {"tail_ms": 0.0, "join_ms": 0.0}
+        for e in prof.key_averages():
+            for key in ("tail", "join"):
+                if f"{key}_kernel" in e.key:
+                    split[f"{key}_ms"] += dev_us(e) / 1e3 / calls
+        if split["tail_ms"] > 0 and split["join_ms"] > 0:
+            if waves:
+                split["wave_us"] = split["join_ms"] * 1e3 / waves
+            return split
+    return {"tail_ms": None, "join_ms": None, "wave_us": None}
 
 
 def phase_k2(np_rng):
@@ -785,7 +847,10 @@ def time_k1_finish(np_rng, ops, tab, W: int, P: int, R: int, B: int, where: str,
         want, plain_ms = plain_timed(lambda: fin.msm_finish_plain(ops, Sv))
         err = _hold(fname, f"{where} W={W} rows={rows} NT={NT}", fin.msm_finish_cuda(ops, Sv),
                     want)
-    chain = 5 * W  # dependent additions of one row's join
+    # one row's join: 4 (W - 1) doublings of 8 products and W - 1 additions
+    # of 12 (three base products each over Fp2), each two dependent waves
+    dbl_prods = 8 * (3 if fp2 else 1)
+    join_prods = (W - 1) * (4 * dbl_prods + prods)
     MSM_TIMES.append({
         "name": fname, "group": group, "path": where, "launches": launches[fname],
         "shape": [W, rows, NT], "max_abs_err": err,
@@ -793,12 +858,17 @@ def time_k1_finish(np_rng, ops, tab, W: int, P: int, R: int, B: int, where: str,
         "ms": cuda_ms(lambda: fin.msm_finish_cuda(ops, Sv), reps=MSM_REPS),
         "plain_ms": plain_ms,
         "bound": _bound(W * rows * NT * point_bytes + rows * point_bytes,
-                        (W * rows * (NT - 1) + chain * rows) * prods * imads_per_mul),
+                        (W * rows * (NT - 1) * prods + rows * join_prods) * imads_per_mul),
+        "waves": 2 * 5 * (W - 1),  # from the shape: two a point operation of the chain
+        **_finish_split(lambda: fin.msm_finish_in_turn(ops, Sv), 2 * 5 * (W - 1)),
     })
     for r in MSM_TIMES[-2:]:
+        split = (f" (in turn: tail {r['tail_ms']}, join {r['join_ms']} ms, "
+                 f"{r['wave_us']} us a wave of {r['waves']} from the shape)" if "waves" in r
+                 else "")
         log(f"{r['name']} {r['group']} at {r['shape']} ({where}, {r['inputs']}): kernel "
-            f"{r['ms']:.3f} ms, plain {r['plain_ms']:.1f} ms, bound {r['bound'][0]:.4f} ms "
-            f"({r['bound'][1]})")
+            f"{r['ms']:.3f} ms{split}, plain {r['plain_ms']:.1f} ms, bound "
+            f"{r['bound'][0]:.4f} ms ({r['bound'][1]})")
 
 
 def checked_run(run, what: str):
@@ -968,7 +1038,8 @@ def raw_launch(fn, prepare, spec, a, b):
 def _shape_row(r: dict) -> dict:
     """A kernel's entry of the kernels line at one more shape of a path."""
     row = {k: r[k] for k in ("path", "group", "shape", "operand_b", "launches", "max_abs_err",
-                             "inputs", "ms", "plain_ms", "device_ms", "host_us", "in_l2")
+                             "inputs", "ms", "plain_ms", "device_ms", "host_us", "in_l2",
+                             "tail_ms", "join_ms", "waves", "wave_us")
            if k in r}
     return {**row, "bound_ms": r["bound"][0], "bound_by": r["bound"][1], "library_ms": None}
 
@@ -2684,9 +2755,14 @@ def main() -> int:
                 "library_ms": None, "shape": r["shape"],
             }
             row["path"] = r.get("path", "proof" if name in PROVE_KERNELS else "v1 proof")
-            for k in ("group", "operand_b", "device_ms", "host_us", "in_l2"):
+            for k in ("group", "operand_b", "device_ms", "host_us", "in_l2", "tail_ms",
+                      "join_ms", "waves", "wave_us"):
                 if k in r:
                     row[k] = r[k]
+            if name.startswith("msm_finish"):  # registers and spills of its kernels
+                row["ptxas"] = [p for p in RESULTS.get("finish_ptxas", [])
+                                if (p["kernel"].split()[1] == "fp2") == name.endswith("fp2")
+                                and p["kernel"].endswith("n=48") == name.endswith("fp48")]
             if name == "mont_mul":  # launches of the options, batched, depth-32, BW6-761 and
                 # Marlin proofs and of the on-the-fly routes; K2 at a Marlin proof's NTT
                 # shapes and at the options proof's new shapes

@@ -302,6 +302,50 @@ def test_msm_finish_kernel_matches_plain(g2, W, R, NT):
         finish_cuda.msm_finish_cuda(ops, tuple(c[..., :3].contiguous() for c in flat(S)[:3]))
 
 
+# the main path's shapes (BLS12-381 G1 at R = 4, G2 at R = 1, W = 64) and
+# depth 32's lane count, NT = 8,192 (three tail stages)
+@pytest.mark.parametrize("g2,W,R,NT", [(False, 64, 4, 1024), (True, 64, 1, 1024),
+                                       (False, 64, 4, 8192), (True, 64, 1, 8192)],
+                         ids=["g1", "g2", "g1_nt8192", "g2_nt8192"])
+def test_msm_finish_kernel_matches_plain_at_the_proofs_shapes(g2, W, R, NT):
+    _need_card()
+    spec = fs.BLS_FQ
+    ops = prove_lm.sw_ops(groth16.pairing_config("bls12_381"), g2, "cuda")
+    planes = [_planes(spec, (W * R, spec.n, NT), 80 + i).reshape(W, R, spec.n, NT)
+              for i in range(6 if g2 else 3)]
+    S = tuple((planes[2 * i], planes[2 * i + 1]) for i in range(3)) if g2 else tuple(planes)
+    want = finish_cuda.msm_finish_plain(ops, S)
+    got = finish_cuda.msm_finish_cuda(ops, S)
+    for g, w in zip(_flat(got), _flat(want)):
+        assert g.shape == (R, spec.n, 1)
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("g2", [False, True], ids=["g1", "g2"])
+def test_msm_finish_kernel_on_a_row_of_identities(g2):
+    """Row 1's window sums are all the identity (0 : 1 : 0): the kernel
+    equals the plain version, and row 1 comes out as the identity (Z = 0)."""
+    _need_card()
+    spec = fs.BLS_FQ
+    W, R, NT = 5, 3, 64
+    ops = prove_lm.sw_ops(groth16.pairing_config("bls12_381"), g2, "cuda")
+    planes = [_planes(spec, (W * R, spec.n, NT), 90 + i).reshape(W, R, spec.n, NT)
+              for i in range(6 if g2 else 3)]
+    one = torch.as_tensor(fs.to_lm(spec.to_mont_host([1]))[:, 0].astype(np.int64),
+                          dtype=torch.int32, device="cuda")
+    for i, p in enumerate(planes):
+        p[:, 1] = 0
+        if i == (2 if g2 else 1):  # Y's (first) component: Montgomery 1
+            p[:, 1] = one[:, None]
+    S = tuple((planes[2 * i], planes[2 * i + 1]) for i in range(3)) if g2 else tuple(planes)
+    want = finish_cuda.msm_finish_plain(ops, S)
+    got = finish_cuda.msm_finish_cuda(ops, S)
+    for g, w in zip(_flat(got), _flat(want)):
+        assert torch.equal(g, w)
+    Z = _flat(got)[4 if g2 else 2:]
+    assert all(int(z[1].abs().sum()) == 0 for z in Z)
+
+
 @pytest.mark.parametrize("g2", [False, True], ids=["g1", "g2"])
 def test_msm_finish_kernel_over_proof_rows(g2):
     """The batched MSM's finish: K1's (W, P, R, n, NT) window sums as the
@@ -318,6 +362,66 @@ def test_msm_finish_kernel_over_proof_rows(g2):
         one = finish_cuda.msm_finish_cuda(ops, pack([c[:, p].contiguous() for c in planes]))
         for g, w in zip(_flat(rows), _flat(one)):
             assert torch.equal(g[p * R : (p + 1) * R], w)
+
+
+def _finish_inputs(curve: str, g2: bool, W: int, R: int, NT: int, seed: int):
+    spec = fs.BW6_FQ if curve == "bw6_761" else fs.BLS_FQ
+    ops = prove_lm.sw_ops(groth16.pairing_config(curve), g2, "cuda")
+    fp2 = g2 and curve == "bls12_381"
+    planes = [_planes(spec, (W * R, spec.n, NT), seed + i).reshape(W, R, spec.n, NT)
+              for i in range(6 if fp2 else 3)]
+    S = tuple((planes[2 * i], planes[2 * i + 1]) for i in range(3)) if fp2 else tuple(planes)
+    return ops, S
+
+
+# rows on both sides of the kernel's kOwnRows (8: a join block an SM), and
+# more join blocks than the card holds at once (600; at n = 48 two fit an SM)
+@pytest.mark.parametrize("curve,g2,W,R,NT", [
+    ("bls12_381", False, 4, 8, 1024), ("bls12_381", False, 4, 9, 1024),
+    ("bls12_381", True, 4, 8, 256), ("bls12_381", True, 4, 9, 256),
+    ("bw6_761", False, 3, 600, 64), ("bls12_381", True, 3, 600, 64)],
+    ids=["g1_r8", "g1_r9", "g2_r8", "g2_r9", "bw6_r600", "g2_r600"])
+def test_msm_finish_kernel_in_turn_and_beside_equal_plain(curve, g2, W, R, NT):
+    """The join with the tail beside it (its programmatic dependent) and
+    with the tail run to its end first give the plain version's planes."""
+    _need_card()
+    ops, S = _finish_inputs(curve, g2, W, R, NT, 110)
+    want = _flat(finish_cuda.msm_finish_plain(ops, S))
+    for run in (finish_cuda.msm_finish_cuda, finish_cuda.msm_finish_in_turn):
+        for g, w in zip(_flat(run(ops, S)), want):
+            assert torch.equal(g, w)
+
+
+_SERIAL = """
+import sys
+import torch
+from zkmember_tpu_torch.msm import finish_cuda
+sys.path.insert(0, "tests")
+import test_torch_cuda as t
+for curve, g2, W, R, NT in [("bls12_381", False, 8, 4, 1024), ("bls12_381", True, 8, 1, 1024),
+                            ("bw6_761", False, 3, 4, 512)]:
+    ops, S = t._finish_inputs(curve, g2, W, R, NT, 120)
+    got, want = finish_cuda.msm_finish_cuda(ops, S), finish_cuda.msm_finish_plain(ops, S)
+    assert all(torch.equal(g, w) for g, w in zip(t._flat(got), t._flat(want))), (curve, g2)
+print("equal")
+"""
+
+
+def test_msm_finish_kernel_with_launches_serialised():
+    """CUDA_LAUNCH_BLOCKING=1 (a subprocess): the tail cannot start before
+    the join ends, so the join does the tail's work itself; the output
+    equals the plain version's."""
+    _need_card()
+    import os
+    import subprocess
+    import sys
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = {**os.environ, "CUDA_LAUNCH_BLOCKING": "1"}
+    out = subprocess.run([sys.executable, "-c", _SERIAL], cwd=root, env=env, capture_output=True,
+                         text=True, timeout=600)
+    assert out.returncode == 0, out.stderr[-4000:]
+    assert out.stdout.strip().endswith("equal")
 
 
 def _bw6_table(g2: bool, rows: int, B: int):
@@ -381,6 +485,22 @@ def test_msm_finish_kernel_bw6_matches_plain(g2, P):
     assert kernels.LAUNCHES["msm_finish_fp48"] == before + 2
     for g, w in zip(got, want):
         assert g.shape == (P * R, spec.n, 1)
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("g2", [False, True], ids=["g1", "g2"])
+def test_msm_finish_kernel_bw6_matches_plain_at_the_proofs_shapes(g2):
+    """The BW6-761 proof's finish shapes: W = 95, NT = 2,048, R = 4 (G1)
+    and 1 (G2)."""
+    _need_card()
+    spec = fs.BW6_FQ
+    W, R, NT = 95, 1 if g2 else 4, 2048
+    ops = prove_lm.sw_ops(groth16.pairing_config("bw6_761"), g2, "cuda")
+    S = tuple(_planes(spec, (W * R, spec.n, NT), 70 + i).reshape(W, R, spec.n, NT)
+              for i in range(3))
+    want = finish_cuda.msm_finish_plain(ops, S)
+    got = finish_cuda.msm_finish_cuda(ops, S)
+    for g, w in zip(got, want):
         assert torch.equal(g, w)
 
 

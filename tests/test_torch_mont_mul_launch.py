@@ -142,3 +142,20 @@ def test_bm_plain_matches_reference(name):
                                  torch.from_numpy(b).int())
     assert got.shape == want.shape
     assert np.array_equal(want.astype(np.int64), got.numpy().astype(np.int64))
+
+
+@pytest.mark.parametrize("spec", [fs.BLS_FQ, fs.BW6_FQ], ids=lambda s: s.name)
+def test_lm_plain_gives_the_broadcast_shape(spec):
+    """A (1, n, 1) plane times an (n, 1) constant column (a one-row finish's
+    doubling, ``swp_double``'s ``mul_consts``) is (1, n, 1), as the kernel
+    gives it; the values are each row's product."""
+    from zkmember_tpu_torch.fields import lm
+
+    rng = np.random.default_rng(3)
+    limbs = rng.integers(0, 1 << 16, size=(1, spec.n, 1), dtype=np.int64)
+    limbs[:, -1] %= int(spec.p_limbs[-1])
+    a = torch.as_tensor(limbs, dtype=torch.int32)
+    k = lm.const_col(spec, 3, "cpu")
+    got = lm_cuda.mont_mul_plain(spec, a, k)
+    assert tuple(got.shape) == (1, spec.n, 1)
+    assert torch.equal(got[0], lm_cuda.mont_mul_plain(spec, a[0], k))

@@ -1,7 +1,9 @@
-"""The port's MSM finish (narrow tail reduction plus Horner join,
+"""The port's MSM finish (tail reduction plus Horner join,
 ``msm/finish_cuda.py``) against the JAX reference's XLA
 ``straus.tree_reduce_lanes`` + ``straus.horner_join`` on the same window
-sums, and against a host bignum MSM.
+sums, and against a host bignum MSM.  The port adds the lanes chunk by
+chunk (``finish_cuda.TAIL_CHUNK``) and doubles with the a = 0 doubling, so
+the two agree as points, not as projective coordinates.
 
 The window sums are seeded random points k G in projective form with a
 random Z, so the expected result of row r is (sum_w 16^(W-1-w) sum_i
@@ -18,7 +20,7 @@ from zkmember_tpu.curves import bls12_381 as jbls, device as jcdv
 from zkmember_tpu.fields import device as dv, lm as jlm
 from zkmember_tpu.msm import straus as jstraus
 from zkmember_tpu_torch import kernels
-from zkmember_tpu_torch.curves import bls12_381 as bls
+from zkmember_tpu_torch.curves import bls12_381 as bls, device as cdv
 from zkmember_tpu_torch.fields import spec as fs
 from zkmember_tpu_torch.msm import finish_cuda, select_reduce_cuda, straus
 from zkmember_tpu_torch.snark import groth16, prove_lm
@@ -33,21 +35,27 @@ def _boom(*args, **kwargs):
     raise AssertionError("a CUDA kernel was reached")
 
 
-def _window_sums(g2: bool, W: int, R: int, NT: int, seed: int):
+def _window_sums(g2: bool, W: int, R: int, NT: int, seed: int, zero_windows=()):
     """Coordinates of (W, R, n, NT) u32 planes of random projective points
-    k G, and the host MSM of each row."""
+    k G, and the host MSM of each row.  Windows in `zero_windows` hold the
+    identity (0 : 1 : 0) in every lane."""
     rng = np.random.default_rng(seed)
     curve, gen = (bls.G2, bls.G2_GEN) if g2 else (bls.G1, bls.G1_GEN)
     q = fs.BLS_FQ.p
-    ks = rng.integers(1, 1 << 62, size=(W, R, NT)).tolist()
+    ks = rng.integers(1, 1 << 62, size=(W, R, NT))
+    ks[list(zero_windows)] = 0
+    ks = ks.tolist()
     coords = [[] for _ in range(6 if g2 else 3)]
     for k in (k for kw in ks for kr in kw for k in kr):
-        x, y = curve.mul(k, gen)
         z = [int(v) for v in rng.integers(1, 1 << 62, size=2)]
-        if g2:
+        if k == 0:
+            vals = [0, 0, 1, 0, 0, 0] if g2 else [0, 1, 0]
+        elif g2:
+            x, y = curve.mul(k, gen)
             zf = bls.fq2(*z)
             vals = [c for e in (x * zf, y * zf, zf) for c in (e.coeffs[0].v, e.coeffs[1].v)]
         else:
+            x, y = curve.mul(k, gen)
             vals = [x.v * z[0] % q, y.v * z[0] % q, z[0]]
         for c, v in zip(coords, vals):
             c.append(v)
@@ -66,22 +74,33 @@ def _map(f, c):
     return tuple(_map(f, ci) for ci in c) if isinstance(c, tuple) else f(c)
 
 
+def _map2(f, a, b):
+    return tuple(_map2(f, x, y) for x, y in zip(a, b)) if isinstance(a, tuple) else f(a, b)
+
+
 def _ints(pt):
     if pt is None:
         return None
     return tuple(tuple(int(c.v) for c in v.coeffs) if hasattr(v, "coeffs") else int(v.v) for v in pt)
 
 
-@pytest.mark.parametrize("g2,R", [(False, 2), (True, 1)], ids=["g1", "g2"])
-def test_plain_finish_matches_reference_and_host(g2, R):
-    W, NT = 8, 8
-    S, want = _window_sums(g2, W, R, NT, seed=31 + g2)
+def _jops(g2):
+    if g2:
+        return jcdv.sw_ops_for(jlm.Fp2OpsLM(dv.BLS_FQ2), (12, 12), "bls12_381_g2/lm")
+    return jcdv.sw_ops_for(jlm.FpOpsLM(dv.BLS_FQ), 12, "bls12_381_g1/lm")
+
+
+# (g2, W, R, NT, windows of identities): NT = 512 runs the reference's
+# contiguous halvings (NT > 256) and two of the port's chunk stages
+@pytest.mark.parametrize("g2,W,R,NT,zeros", [
+    (False, 8, 2, 8, ()), (True, 8, 1, 8, ()), (False, 1, 1, 512, ()), (True, 3, 1, 8, (1,)),
+    (False, 4, 2, 8, (0, 2)),
+], ids=["g1", "g2", "g1_nt512", "g2_identity_window", "g1_identity_windows"])
+def test_plain_finish_matches_reference_and_host(g2, W, R, NT, zeros):
+    S, want = _window_sums(g2, W, R, NT, seed=31 + g2 + NT, zero_windows=zeros)
     ops = prove_lm.sw_ops(groth16.pairing_config("bls12_381"), g2, "cpu")
     got = finish_cuda.msm_finish_plain(ops, _map(lambda a: torch.from_numpy(a.astype(np.int32)), S))
-    if g2:
-        jops = jcdv.sw_ops_for(jlm.Fp2OpsLM(dv.BLS_FQ2), (12, 12), "bls12_381_g2/lm")
-    else:
-        jops = jcdv.sw_ops_for(jlm.FpOpsLM(dv.BLS_FQ), 12, "bls12_381_g1/lm")
+    jops = _jops(g2)
     ref = jstraus.horner_join(jops, jstraus.tree_reduce_lanes(jops, S))
     curve, jcurve = (bls.G2, jbls.G2) if g2 else (bls.G1, jbls.G1)
     for r in range(R):
@@ -127,3 +146,37 @@ def test_finish_wrapper_rejects_bad_shapes_before_launch(monkeypatch, case):
              "coords": "3 coordinates", "cpu": "CUDA device"}[case]
     with pytest.raises(ValueError, match=match):
         finish_cuda.msm_finish_cuda(ops, planes)
+
+
+@pytest.mark.parametrize("g2", [False, True], ids=["g1", "g2"])
+def test_swp_double_matches_reference_bit_for_bit(g2):
+    """The join's doubling (RCB15 Alg. 9): the port's swp_double gives the
+    JAX swp_double's projective coordinates on points with a random Z and
+    on the identity, and doubles as the host curve does."""
+    pts, _ = _window_sums(g2, 1, 1, 5, seed=5 + g2)
+    ident, _ = _window_sums(g2, 1, 1, 1, seed=6, zero_windows=(0,))
+    S = _map2(lambda a, b: np.concatenate([a[0, 0], b[0, 0]], axis=-1), pts, ident)  # (n, 6)
+    ops = prove_lm.sw_ops(groth16.pairing_config("bls12_381"), g2, "cpu")
+    got = cdv.swp_double(ops, _map(lambda a: torch.from_numpy(a.astype(np.int32)), S))
+    want = jcdv.swp_double(_jops(g2), S)
+    flat = lambda P: [c for x in P for c in (x if isinstance(x, tuple) else (x,))]  # noqa: E731
+    for g, w in zip(flat(got), flat(want)):
+        assert np.array_equal(g.numpy().astype(np.int64), np.asarray(w).astype(np.int64))
+    curve = bls.G2 if g2 else bls.G1
+    for lane in range(6):
+        pt = straus.projective_to_host(curve, _map(lambda c: c[..., lane : lane + 1], S))
+        dbl = straus.projective_to_host(curve, _map(lambda c: c[..., lane : lane + 1].numpy(), got))
+        assert _ints(dbl) == _ints(None if pt is None else curve.double(pt)), lane
+
+
+@pytest.mark.parametrize("NT,want", [
+    (1, (0, 0)), (64, (0, 0)), (512, (2 * 64, 2 * 1)),
+    (1024, (2 * 128 + 2 * 16, 2 * 2 + 2 * 1)),
+    (8192, (2 * 1024 + 2 * 128 + 2 * 16, 2 * 16 + 2 * 2 + 2 * 1)),
+])
+def test_tail_scratch_counts_the_kernels_stages(NT, want):
+    """Records a tail stage hands to a later one (8 partial sums a chunk of
+    64 lanes, while a window is wider than a chunk) and counters (one a
+    chunk of those), for two windows."""
+    assert (finish_cuda.TAIL_CHUNK, finish_cuda.TAIL_KEEP) == (64, 8)
+    assert finish_cuda.tail_scratch(2, NT) == want

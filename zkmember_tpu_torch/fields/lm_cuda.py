@@ -39,7 +39,11 @@ def mont_mul_plain(spec: FieldSpec, a: torch.Tensor, b: torch.Tensor) -> torch.T
     m = lb.carry(lb.mul_cols(T[..., :n, :], NP), n)
     U = lb.mul_cols(m, P)  # 2n - 1 columns
     S = lb.carry(T + torch.nn.functional.pad(U, (0, 0, 0, 1)), 2 * n + 1)
-    return lb.cond_sub_p(spec, S[..., n : 2 * n, :], S[..., 2 * n, :]).to(torch.int32)
+    out = lb.cond_sub_p(spec, S[..., n : 2 * n, :], S[..., 2 * n, :]).to(torch.int32)
+    # the operands' broadcast shape, as the kernel gives: a (1, n, B) plane
+    # times an (n, 1) constant came out (n, B)
+    shape = kernels.broadcast_shape(tuple(a.shape), tuple(b.shape))
+    return out if tuple(out.shape) == shape else out.expand(shape).contiguous()
 
 
 class LaunchArgs(NamedTuple):

@@ -117,7 +117,8 @@ def library():
         lib.zk_select_reduce.restype = i32
         vpp = ctypes.POINTER(vp)
         lib.zk_msm_finish.argtypes = [
-            i32, i32, vpp, vpp, vpp, vpp, i32, i32, ll, i32, u32p, u32, u32p, i32, i32, vp,
+            i32, i32, vpp, vpp, vp, vp, vp, vp, i32, i32, ll, i32, i32, u32p, u32, i32, i32, i32,
+            vp,
         ]
         lib.zk_msm_finish.restype = i32
         _lib = lib

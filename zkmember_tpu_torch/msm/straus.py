@@ -5,9 +5,11 @@
 with T_i = [0..15] P_i the per-point table (``table_program``, in K1's
 packed layout) and d_{i,w} the w-th 4-bit digit of s_i.  Kernel K1
 (``select_reduce_cuda``) selects and reduces each lane tile per window;
-``tree_reduce_lanes`` finishes the narrow tail and ``horner_join`` folds
-the window sums, both in one kernel on the card (``finish_cuda``).  Zero
-scalars select entry 0, the identity, so padded lanes vanish.
+the finish (``finish_cuda``: tail reduction and Horner join, one kernel
+on the card) adds up K1's lanes and folds the window sums.
+``tree_reduce_lanes`` and ``horner_join`` keep the reference's order for
+the lane reductions outside K1 (``window_sums``, ``bool_msm_program``).
+Zero scalars select entry 0, the identity, so padded lanes vanish.
 
 Two routes share that machinery:
   - precomputed: the table is built once per proving key and kept
@@ -217,7 +219,7 @@ def bool_msm_program(ops, X, Y, mask):
 
 
 def msm_precomp_program(ops, tab, nwin: int, z, mark=None, prefix: str = ""):
-    """MSM from a precomputed table through kernel K1, then the narrow tail
+    """MSM from a precomputed table through kernel K1, then the tail
     reduction and the Horner join (``finish_cuda``).  tab: table_program's
     records (16, R, B, 3 C n/2); z ([R,] nl, B) canonical scalar limbs.
     Returns projective coords ([R,] n, 1).  mark: optional phase clock
