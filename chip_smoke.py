@@ -2,8 +2,8 @@
 """Run the PyTorch/CUDA port on one NVIDIA GPU, end to end.
 
     python3 chip_smoke.py [--seed S]
-        [--phases device,build,k2,k1,prove,options,k3,setup,prove_v1,cli,prove_batch,
-                  harness,hash,scale,bw6,marlin[,profile]]
+        [--phases device,build,k2,k1,prove,options,multi,k3,setup,prove_v1,cli,
+                  prove_batch,harness,hash,scale,bw6,marlin[,profile]]
 
 Phases (each raises on failure, so the script exits non-zero):
   device  the card's name and power limit (nvidia-smi)
@@ -40,6 +40,29 @@ Phases (each raises on failure, so the script exits non-zero):
           finish over the per-call tables); window_sums over the G1 rows
           under checked_run, its Horner join equal to msm_program's; K1, the
           finish and K2 timed at the new shapes
+  multi   multi-device proving over torch.distributed, NCCL with one rank a
+          card (world size 1 on one card: every collective still a real NCCL
+          call): entry.dryrun_multi; then, in one run_ranks world, the
+          committed key's proof with every MSM sharded (prove_lm.prove(mesh=)),
+          for a key built with min_lanes = D (K1 over each rank's block of
+          its kept tables) and for the options key (tables on the fly): warm
+          (warm_sharded), a warm-up and a timed proof (launches and
+          collectives counted, the collectives' time), equal to the
+          single-device proof from the same rng state, verified, tampered
+          ones rejected, phases, one more proof under checked_run; K1 and the
+          finish timed at its shapes; sharded_ntt at N = 2^14 against
+          ntt.ntt and sharded_two_to_one over 1,024 pairs against
+          two_to_one_device (limb for limb), the Jacobian sharded_msm over
+          1,024 points against a host MSM and sharded_field_sum over 2^9
+          terms against Python integers, each under checked_run (K3 held at
+          every shape), K3 timed at the MSM's rows and the four-step NTT's
+          twiddle product; then, in this process, the sharded route's combine
+          for D = 2, 4 and 8 (the G1 rows split into D lane blocks, the local
+          half on each over its block of the kept table and over a table
+          built on the fly, the combine over the stacked (W, R, n, NT) K1
+          sums) equal limb for limb to the unsharded MSM, under checked_run
+          (K1 at each block, K2 at each block's table, the finish), K1 and
+          the finish timed at those shapes
   k3      batch-major Montgomery-product kernel against its plain version,
           bit for bit, at n = 16, 24 and 48 (random rows, the rows 0, 1 and
           p - 1, a broadcast (n,) operand) for both stacks' fields, then
@@ -145,7 +168,7 @@ Phases (each raises on failure, so the script exits non-zero):
           share, the top kernels
 
 Progress goes to stderr.  stdout ends with a prove line, an options line, a
-setup/prove_v1 line, a prove_batch/harness/scale line, a BW6-761 line, a hash line, a
+multi line (the sharded proof), a setup/prove_v1 line, a prove_batch/harness/scale line, a BW6-761 line, a hash line, a
 Marlin line, the
 card line (nvidia-smi), one JSON "kernels" line and, last, {"ok": true,
 "device": ...}.
@@ -181,6 +204,7 @@ RESULTS: dict = {}
 STATE: dict = {}  # keys and circuits handed from one phase to the next
 CIRCUITS: dict = {}  # (stack, members) -> the registrar (and the rng state after its CRH
 # params); ("circuit", stack, members) -> bench.py's circuit and its public inputs
+PEOPLE: dict = {}  # (stack, members) -> the registrar's members (each carries its join time)
 # prove_lm's path
 PROVE_M = 1 << 14  # the domain of the 16-member circuit's committed key
 PROVE_KERNELS = ("mont_mul", "select_reduce_fp", "select_reduce_fp2", "msm_finish_fp",
@@ -546,11 +570,12 @@ def phase_k1(np_rng, py_rng):
             log(f"K1 {name} and {fname} at {where} (NT={NT}): limb-exact, the same point")
 
 
-def _registrar(members: int, stack: str = "pedersen381"):
+def _registrar(members: int, stack: str = "pedersen381", people=None):
     """The mock registrar of `members` on a curve stack, built exactly as
     bench.py builds it (once per run): its CRH parameters, leaf digests and
     tree, and the rng's state after the parameters (what bench.py's setup
-    found)."""
+    found).  people: the members to take, where another process built the
+    registrar (a member's digest covers its join time)."""
     if (stack, members) not in CIRCUITS:
         from zkmember_tpu_torch.app import circuits as app
         from zkmember_tpu_torch.app.member import generate_members
@@ -560,7 +585,8 @@ def _registrar(members: int, stack: str = "pedersen381"):
         rng = frng.test_rng()
         cfg = app.get_config(stack)
         leaf_params, node_params = cfg.setup_params(rng)
-        digests = [m.hash(leaf_params) for m in generate_members(members)]
+        people = PEOPLE.setdefault((stack, members), people or generate_members(members))
+        digests = [m.hash(leaf_params) for m in people]
         tree = app.new_membership_tree(leaf_params, node_params, digests)
         CIRCUITS[stack, members] = (cfg, leaf_params, node_params, digests, tree, rng.getstate())
         log(f"{members}-member {stack} registrar built in {time.time() - t:.1f}s")
@@ -768,6 +794,366 @@ def phase_options(np_rng):
     RESULTS["options"] = out
 
 
+MULTI_POINTS = 1024  # the sharded Jacobian MSM's points and the sharded hash's pairs
+MULTI_NTT = 1 << 14  # the sharded NTT's size
+MULTI_SUM = 1 << 9  # the sharded field sum's terms (its max_log_terms)
+COMBINE_D = (2, 4, 8)  # lane blocks of the in-process D-way combine
+
+
+def phase_multi(np_rng):
+    """Multi-device proving over torch.distributed on this machine's cards
+    (NCCL, one rank a card; world size 1 on one card, where every
+    collective is still a real NCCL call): entry.dryrun_multi; then in one
+    run_ranks world the sharded proofs of the committed 16-member key
+    (_multi_rank) and the sharded primitives; then the D-way combine of
+    the sharded route in this process for D = 2, 4 and 8
+    (_combine_on_one_card).  Every process group is destroyed by run_ranks,
+    also on failure."""
+    import torch
+
+    from zkmember_tpu_torch import entry
+    from zkmember_tpu_torch.parallel import dist
+
+    n = torch.cuda.device_count()
+    out: dict = {}
+    t = time.time()
+    out["dryrun"] = entry.dryrun_multi(n)
+    out["dryrun"]["total_s"] = time.time() - t
+    log(f"dryrun_multi on {n} card(s) over {out['dryrun']['backend']}: "
+        f"{out['dryrun']['total_s']:.1f}s, steps {out['dryrun']['steps_s']}")
+    _release_card()
+    _registrar(16)  # every rank proves this registrar's circuit
+    people = [m.to_json() for m in PEOPLE["pedersen381", 16]]
+    res = dist.run_ranks(_multi_rank, n, args=(int(np_rng.integers(1 << 31)), people))
+    if n > 1:  # rank 0 held and timed the kernels in its own process
+        rec = res["records"]
+        for k, v in rec["errs"].items():
+            ERRS[k] = max(ERRS.get(k, 0), v)
+        for k, v in rec["checks"].items():
+            CHECKS.setdefault(k, []).extend(v)
+        MSM_TIMES.extend(rec["msm_times"])
+    out.update(res["out"])
+    _release_card()
+    out["combine"] = _combine_on_one_card(np_rng)
+    RESULTS["multi"] = out
+
+
+def _timed_collectives(run):
+    """run() with each collective of parallel.dist between CUDA events:
+    run()'s result and the collectives' milliseconds (packing included)."""
+    import torch
+
+    from zkmember_tpu_torch.parallel import dist
+
+    names = ("all_gather_stack", "all_reduce_sum", "all_to_all")
+    orig = {k: getattr(dist, k) for k in names}
+    events = []
+
+    def timed(fn):
+        def call(*args):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            result = fn(*args)
+            end.record()
+            events.append((start, end))
+            return result
+
+        return call
+
+    for k in names:
+        setattr(dist, k, timed(orig[k]))
+    try:
+        result = run()
+    finally:
+        for k in names:
+            setattr(dist, k, orig[k])
+    torch.cuda.synchronize()
+    return result, sum(a.elapsed_time(b) for a, b in events)
+
+
+def _multi_rank(mesh, seed: int, people: list) -> dict:
+    """One rank of the multi phase: the sharded proofs of the committed key
+    (a key built with min_lanes = D, then the options phase's
+    precompute=False, merge_bool=False key) and the sharded primitives.
+    Returns its results and the kernel records it made (held errors,
+    checked shapes, K1 and finish times), which a parent process takes
+    from rank 0 when the ranks are processes of their own.  people: the
+    16-member registrar's members as JSON, so every rank proves the same
+    circuit (a member's digest covers its join time)."""
+    import numpy as np
+    import torch
+
+    from zkmember_tpu_torch.app.member import Member
+    from zkmember_tpu_torch.snark import prove_lm
+    from zkmember_tpu_torch.utils import checkpoint
+
+    np_rng = np.random.default_rng(seed)
+    _registrar(16, people=[Member.from_json(m) for m in people])
+    cs, public, _ = _membership_circuit(16)
+    state = _registrar(16)[-1]
+    base = STATE.get("keys") or checkpoint.load_groth16_keys(
+        os.path.join(REPO, "artifacts", "groth16_bls12_381_16"), device=mesh.device)
+    single = prove_lm.prove(base, cs, rng=_rng_at(state))  # the single-device proof
+    out = {"world_size": mesh.size, "backend": torch.distributed.get_backend(),
+           "mesh": mesh.shape}
+    for name, opts in (("min_lanes", {}), ("options", {"precompute": False, "merge_bool": False})):
+        PLAIN_RUNS.clear()
+        out[name] = _sharded_proof(mesh, base, cs, public, state, single, name, opts,
+                                   timed=name == "min_lanes")
+    PLAIN_RUNS.clear()
+    out["primitives"] = _sharded_primitives(mesh, np_rng)
+    out.update(prove_s=out["min_lanes"]["prove_s"], phases_s=out["min_lanes"]["breakdown"],
+               launches=out["min_lanes"]["launches"],
+               collective_ms=out["min_lanes"]["collective_ms"])
+    return {"out": out, "records": {"errs": dict(ERRS), "checks": dict(CHECKS),
+                                    "msm_times": list(MSM_TIMES)}}
+
+
+def _sharded_proof(mesh, base, cs, public, state, single, name: str, opts: dict,
+                   timed: bool) -> dict:
+    """The committed key's proof with every MSM sharded over `mesh`: keys
+    built with min_lanes = D (and `opts`), warm_sharded, a warm-up proof, a
+    timed proof with the launches and collectives counted (reset just
+    before it, read just after) and the collectives' time; it equals the
+    single-device proof from the same rng state, verifies, and fails
+    tampered; phases; one more proof under checked_run; K1 and the finish
+    timed at its shapes (`timed`)."""
+    import torch
+
+    from zkmember_tpu_torch import kernels
+    from zkmember_tpu_torch.parallel import dist
+    from zkmember_tpu_torch.snark import prove_lm
+
+    D = mesh.shape["msm"]
+    what = f"sharded {name} proof"
+    r: dict = {}
+    t = time.time()
+    keys = prove_lm.Groth16KeysLM(base.pk, mesh.device, cs=cs, min_lanes=D, **opts)
+    prove_lm.warm_sharded(keys, mesh)
+    r["keys_warm_s"] = time.time() - t
+    r.update(B1=keys.B1, B2g=keys.B2g, has_bool=keys.has_bool)
+    if keys.has_bool:
+        r.update(Bb=keys.Bb, B2b=keys.B2b)
+
+    def prove(**kw):
+        return prove_lm.prove(keys, cs, rng=_rng_at(state), mesh=mesh, **kw)
+
+    t = time.time()
+    prove()
+    r["first_prove_s"] = time.time() - t
+    kernels.reset_launches()
+    dist.reset_collectives()
+    torch.cuda.synchronize()
+    t = time.time()
+    proof, r["collective_ms"] = _timed_collectives(prove)
+    r["prove_s"] = time.time() - t
+    launches = {k: v for k, v in kernels.LAUNCHES.items() if v}
+    r["launches"] = launches
+    r["collectives"] = {k: v for k, v in dist.COLLECTIVES.items() if v}
+    log(f"{what} over {mesh.shape}: keys+warm {r['keys_warm_s']:.2f}s, warm-up proof "
+        f"{r['first_prove_s']:.3f}s, timed proof {r['prove_s']:.3f}s (collectives "
+        f"{r['collective_ms']:.3f} ms: {r['collectives']}); launches {launches}")
+    want = {"select_reduce_fp": 1, "select_reduce_fp2": 1, "msm_finish_fp": 2,
+            "msm_finish_fp2": 2}
+    if {k: launches.get(k, 0) for k in want} != want or set(launches) != set(want) | {"mont_mul"}:
+        raise AssertionError(f"the {what} launched {launches}")
+    if r["collectives"] != {"all_gather": 4 if keys.has_bool else 2}:
+        raise AssertionError(f"the {what} ran the collectives {r['collectives']}")
+    if not _same_proof(proof, single):
+        raise AssertionError(f"the {what} differs from the single-device proof")
+    log(f"{what}: equal to the single-device proof from the same rng state")
+    _holds_and_tamper_fails(keys.cfg, keys.pk.vk, public, proof, what)
+    phases: dict = {}
+    t = time.time()
+    prove(phase_times=phases)
+    r["breakdown"] = {"total_s": time.time() - t, **phases}
+    log(f"{what} phases: " + ", ".join(f"{k} {v:.3f}s" for k, v in r["breakdown"].items()))
+    checked, k2_shapes, k1_shapes, *_ = checked_run(prove, what)
+    if not _same_proof(checked, proof):
+        raise AssertionError(f"the checked {what} differs from the timed one")
+    if sum(k2_shapes.values()) != launches["mont_mul"]:
+        raise AssertionError(f"the checked {what}'s K2 calls differ from the timed proof's")
+    r["k1_shapes"] = [[list(k), v] for k, v in k1_shapes.items()]
+    r["k2_shapes"] = len(k2_shapes)
+    if timed:
+        time_held_msm(what, launches)
+    return r
+
+
+def time_held_msm(where: str, launches: dict) -> None:
+    """K1 and the finish timed on the inputs checked_run held them at in
+    this phase (PLAIN_RUNS), beside those plain calls' times: one
+    MSM_TIMES entry each, with `launches[name]` (that path's counted run)."""
+    for (name, _), held in list(PLAIN_RUNS.items()):
+        ops, *args = held["args"]
+        group = "G2" if isinstance(ops.b3, tuple) else "G1"
+        if name.startswith("select_reduce"):
+            tab, dig = args
+            entry = _k1_entry(ops, tab, dig, 0, held["ms"], where, group, launches[name],
+                              "the checked run's")
+        else:
+            entry = _finish_entry(ops, args[0], 0, held["ms"], where, group, launches[name],
+                                  "the checked run's")
+        MSM_TIMES.append(entry)
+        _log_msm_times([entry], where)
+
+
+def _sharded_primitives(mesh, np_rng) -> dict:
+    """The sharded NTT at MULTI_NTT against ntt.ntt, the sharded hash of
+    MULTI_POINTS digest pairs against two_to_one_device (both limb for
+    limb), the Jacobian sharded MSM of MULTI_POINTS points against a host
+    MSM, and the field sum of MULTI_SUM terms against Python integers; each
+    once, under checked_run (K3 held at every shape), its collectives
+    timed."""
+    import random
+
+    import torch
+
+    from zkmember_tpu_torch import entry
+    from zkmember_tpu_torch.curves import bls12_381 as bls
+    from zkmember_tpu_torch.fields import device as dv, spec as fs
+    from zkmember_tpu_torch.hash import pedersen as ph
+    from zkmember_tpu_torch.msm import msm
+    from zkmember_tpu_torch.ntt import ntt as nttmod
+    from zkmember_tpu_torch.parallel import dist
+
+    dev = mesh.device
+    fr, fq = fs.BLS_FR, fs.BLS_FQ
+    node = entry._params()[2]
+    rng = random.Random(int(np_rng.integers(1 << 31)))
+    # points P_i = a G + i b G: the host MSM is one multiplication of G
+    a, b = rng.randrange(1, bls.R), rng.randrange(1, bls.R)
+    step, pt, pts = bls.G1.mul(b, bls.G1_GEN), bls.G1.mul(a, bls.G1_GEN), []
+    for _ in range(MULTI_POINTS):
+        pts.append(pt)
+        pt = bls.G1.add(pt, step)
+    scalars = [rng.randrange(bls.R) for _ in range(MULTI_POINTS)]
+    k = sum(s * (a + i * b) for i, s in enumerate(scalars)) % bls.R
+    host_msm = bls.G1.mul(k, bls.G1_GEN)
+
+    def rows(vals, spec):
+        return torch.as_tensor(spec.to_mont_host(vals).astype("int64"), dtype=torch.int32,
+                               device=dev)
+
+    X, Y = rows([p[0].v for p in pts], fq), rows([p[1].v for p in pts], fq)
+    bits = msm.scalars_to_bits_np(scalars, bls.R.bit_length())
+    coeffs = rand_rows(np_rng, fr, (MULTI_NTT, fr.n)).to(dev)
+    left = rand_rows(np_rng, fr, (MULTI_POINTS, fr.n)).to(dev)  # canonical digests below r
+    right = rand_rows(np_rng, fr, (MULTI_POINTS, fr.n)).to(dev)
+    terms = [rng.randrange(fr.p) for _ in range(MULTI_SUM)]
+    F = dv.FpOps(fq, dev)
+
+    def jacobian_to_host(J):
+        p, rinv = fq.p, pow(fq.R, -1, fq.p)
+        Xj, Yj, Zj = (fs.limbs_to_int(c[0].cpu().numpy()) * rinv % p for c in J)
+        zi = pow(Zj, -1, p)
+        return (Xj * zi * zi % p, Yj * zi * zi * zi % p)
+
+    cases = {
+        "ntt": (lambda: dist.sharded_ntt(fr, mesh, coeffs),
+                lambda got: torch.equal(got, nttmod.ntt(nttmod.Domain.get(fr, MULTI_NTT),
+                                                        coeffs))),
+        "hash": (lambda: dist.sharded_two_to_one(node, mesh, left, right),
+                 lambda got: torch.equal(got, ph.two_to_one_device(node, left, right))),
+        "msm": (lambda: dist.sharded_msm(F, mesh, bits, X, Y),
+                lambda got: jacobian_to_host(got) == (host_msm[0].v, host_msm[1].v)),
+        "field_sum": (lambda: dist.sharded_field_sum(fr, mesh, rows(terms, fr)),
+                      lambda got: fr.from_mont_host(got.cpu().numpy())[0] == sum(terms) % fr.p),
+    }
+    out: dict = {}
+    for name, (run, ok) in cases.items():
+        torch.cuda.synchronize()
+        t = time.time()
+        (got, _, _, k3_counts, copied), coll_ms = _timed_collectives(
+            lambda: checked_run(run, f"sharded {name}"))
+        if not ok(got):
+            raise AssertionError(f"the sharded {name} disagrees with its reference")
+        out[name] = {"checked_s": time.time() - t, "collective_ms": coll_ms,
+                     "k3_shapes": [[list(a_), list(b_), v] for (_, a_, b_), v in
+                                   sorted(k3_counts.items())],
+                     "k3_copied": [list(c) for c in copied]}
+        log(f"sharded {name} over {mesh.shape}: equal to its reference, K3 held at "
+            f"{len(k3_counts)} shapes; {out[name]['checked_s']:.3f}s checked, collectives "
+            f"{coll_ms:.3f} ms")
+        out[name]["k3_counts"] = k3_counts
+    # K3 timed at the widest shape of the Jacobian MSM (a rank's rows) and
+    # at the four-step NTT's twiddle product (a rank's N1 / D grid rows)
+    D = mesh.shape["msm"]
+    N1, N2 = dist.fourstep_shape(MULTI_NTT, D)
+    timed = []
+    for name, spec, shape in (("msm", fq, (MULTI_POINTS // D, fq.n)),
+                              ("ntt", fr, (N1 // D, N2, fr.n))):
+        r = time_k3(np_rng, spec, shape, shape)
+        r.update(path=f"sharded {name}",
+                 launches=out[name]["k3_counts"].get((spec.name, shape, shape), 0))
+        timed.append(r)
+    for v in out.values():
+        del v["k3_counts"]
+    out["k3_timed"] = timed
+    return out
+
+
+def _combine_on_one_card(np_rng) -> dict:
+    """The sharded route's D-way combine in this process, for each D in
+    COMBINE_D: the committed key's G1 rows split into D lane blocks, the
+    local half (straus.sharded_window_sums) on each block, over its block
+    of the kept table and over a table built on the fly from its points,
+    the results stacked as the gather would, (W, R, n, NT), and
+    straus.combine_window_sums over them; launches counted in one run, then
+    one more under checked_run (K1 at each block, K2 at each block's table
+    build and the finish held against their plain versions); each combine
+    equal limb for limb to the unsharded MSM over the kept table
+    (msm_precomp_program: the blocks are whole K1 tiles); K1 and the finish
+    timed at those shapes."""
+    import torch
+
+    from zkmember_tpu_torch import kernels
+    from zkmember_tpu_torch.fields import spec as fs
+    from zkmember_tpu_torch.msm import straus
+    from zkmember_tpu_torch.parallel import dist
+    from zkmember_tpu_torch.utils import checkpoint
+
+    keys = STATE.get("keys") or checkpoint.load_groth16_keys(
+        os.path.join(REPO, "artifacts", "groth16_bls12_381_16"), device="cuda")
+    ops, X, Y, tab = keys.ops1, keys.g1_X, keys.g1_Y, keys.g1_tab
+    z = _scalars_on_points(np_rng, fs.BLS_FR, X, Y)
+    whole = straus.msm_precomp_program(ops, tab, keys.nwin, z)
+    out: dict = {}
+    for D in COMBINE_D:
+        def run():
+            got = []
+            for tabs in ([dist.block(tab, D, j, 2) for j in range(D)],
+                         [straus.table_program(ops, *(dist.block(c, D, j, -1) for c in (X, Y)))
+                          for j in range(D)]):
+                S = [straus.sharded_window_sums(ops, t, dist.block(z, D, j, -1), keys.nwin)
+                     for j, t in enumerate(tabs)]
+                G = tuple(torch.cat([s[i] for s in S], dim=-1) for i in range(3))  # (W, R, n, NT)
+                got.append(straus.combine_window_sums(ops, G))
+            return got
+
+        PLAIN_RUNS.clear()
+        kernels.reset_launches()
+        torch.cuda.synchronize()
+        t = time.time()
+        run()
+        torch.cuda.synchronize()
+        launches = {k: v for k, v in kernels.LAUNCHES.items() if v}
+        r = {"s": time.time() - t, "launches": launches}
+        got, _, k1_shapes, *_ = checked_run(run, f"combine D={D}")
+        for route, acc in zip(("kept table", "on the fly"), got):
+            if not all(torch.equal(a, b) for a, b in zip(acc, whole)):
+                raise AssertionError(f"the D = {D} combine ({route}) differs from the unsharded "
+                                     "MSM")
+        r["k1_shapes"] = [list(k) for k in k1_shapes]
+        log(f"combine D={D}: {r['s']:.3f}s, launches {launches}; both routes equal to the "
+            "unsharded MSM limb for limb")
+        time_held_msm(f"combine D={D}", launches)
+        out[D] = r
+    PLAIN_RUNS.clear()
+    return out
+
+
 def time_msm_kernels(np_rng, keys, P: int, where: str, launches: dict,
                      counted: dict | None = None) -> None:
     """K1 (G1 and G2) on digits of the shape a batch of P proofs over `keys`
@@ -803,7 +1189,6 @@ def time_k1_finish(np_rng, ops, tab, W: int, P: int, R: int, B: int, where: str,
 
     fp2, spec, _ = k1.kernel_consts(ops)
     n = spec.n
-    imads_per_mul = _imads(spec)
     name = k1.variant("select_reduce", fp2, n)
     where_k1 = f"{where} W={W} P={P} R={R} B={B}"
     held = PLAIN_RUNS.get((name, (W, P, R, B)))
@@ -819,25 +1204,13 @@ def time_k1_finish(np_rng, ops, tab, W: int, P: int, R: int, B: int, where: str,
         S = k1.select_reduce_cuda(ops, tab, dig)
         want, plain_ms = plain_timed(lambda: select_reduce_plain_sliced(ops, tab, dig))
         err = _hold(name, where_k1, S, want)
-    _, L = k1.tile_shape(B)
-    NT = B // L
-    nc = 2 if fp2 else 1
-    prods = 12 * (3 if fp2 else 1)  # base products of one complete addition
-    point_bytes = 3 * nc * n * 4
-    rows = P * R
-    MSM_TIMES.append({
-        "name": name, "group": group, "path": where, "launches": launches[name],
-        "shape": [W, P, R, B], "max_abs_err": err,
-        "inputs": "the checked run's" if held else "random digits",
-        "ms": cuda_ms(lambda: k1.select_reduce_cuda(ops, tab, dig), reps=MSM_REPS),
-        "plain_ms": plain_ms,
-        "bound": _bound(16 * R * B * point_bytes + W * rows * B * 4
-                        + W * rows * NT * point_bytes,
-                        W * rows * (B - NT) * prods * imads_per_mul),
-    })
+    MSM_TIMES.append(_k1_entry(ops, tab, dig, err, plain_ms, where, group, launches[name],
+                               "the checked run's" if held else "random digits"))
     # the finish on this K1 output, its P R rows as one axis: NT lanes a
     # window, then the join
     fname = k1.variant("msm_finish", fp2, n)
+    NT = B // k1.tile_shape(B)[1]
+    rows = P * R
     held = PLAIN_RUNS.get((fname, (W, rows, NT)))
     if held:
         Sv = held["args"][1]
@@ -847,28 +1220,74 @@ def time_k1_finish(np_rng, ops, tab, W: int, P: int, R: int, B: int, where: str,
         want, plain_ms = plain_timed(lambda: fin.msm_finish_plain(ops, Sv))
         err = _hold(fname, f"{where} W={W} rows={rows} NT={NT}", fin.msm_finish_cuda(ops, Sv),
                     want)
-    # one row's join: 4 (W - 1) doublings of 8 products and W - 1 additions
-    # of 12 (three base products each over Fp2), each two dependent waves
-    dbl_prods = 8 * (3 if fp2 else 1)
-    join_prods = (W - 1) * (4 * dbl_prods + prods)
-    MSM_TIMES.append({
-        "name": fname, "group": group, "path": where, "launches": launches[fname],
-        "shape": [W, rows, NT], "max_abs_err": err,
-        "inputs": "the checked run's" if held else "random digits",
-        "ms": cuda_ms(lambda: fin.msm_finish_cuda(ops, Sv), reps=MSM_REPS),
-        "plain_ms": plain_ms,
-        "bound": _bound(W * rows * NT * point_bytes + rows * point_bytes,
-                        (W * rows * (NT - 1) * prods + rows * join_prods) * imads_per_mul),
-        "waves": 2 * 5 * (W - 1),  # from the shape: two a point operation of the chain
-        **_finish_split(lambda: fin.msm_finish_in_turn(ops, Sv), 2 * 5 * (W - 1)),
-    })
-    for r in MSM_TIMES[-2:]:
+    MSM_TIMES.append(_finish_entry(ops, Sv, err, plain_ms, where, group, launches[fname],
+                                   "the checked run's" if held else "random digits"))
+    _log_msm_times(MSM_TIMES[-2:], where)
+
+
+def _log_msm_times(entries, where: str) -> None:
+    for r in entries:
         split = (f" (in turn: tail {r['tail_ms']}, join {r['join_ms']} ms, "
                  f"{r['wave_us']} us a wave of {r['waves']} from the shape)" if "waves" in r
                  else "")
         log(f"{r['name']} {r['group']} at {r['shape']} ({where}, {r['inputs']}): kernel "
             f"{r['ms']:.3f} ms{split}, plain {r['plain_ms']:.1f} ms, bound "
             f"{r['bound'][0]:.4f} ms ({r['bound'][1]})")
+
+
+def _k1_entry(ops, tab, dig, err, plain_ms, where: str, group: str, launches: int,
+              inputs: str) -> dict:
+    """K1 timed on records `tab` and digits (W, [P,] R, B) (MSM_REPS calls a
+    round) beside its plain time, with its bound: an MSM_TIMES entry."""
+    from zkmember_tpu_torch.msm import select_reduce_cuda as k1
+
+    fp2, spec, _ = k1.kernel_consts(ops)
+    n = spec.n
+    W, B, R = dig.shape[0], dig.shape[-1], dig.shape[-2]
+    P = dig.shape[1] if dig.ndim == 4 else 1
+    NT = B // k1.tile_shape(B)[1]
+    prods = 12 * (3 if fp2 else 1)  # base products of one complete addition
+    point_bytes = 3 * (2 if fp2 else 1) * n * 4
+    rows = P * R
+    return {
+        "name": k1.variant("select_reduce", fp2, n), "group": group, "path": where,
+        "launches": launches, "shape": list(dig.shape), "max_abs_err": err, "inputs": inputs,
+        "ms": cuda_ms(lambda: k1.select_reduce_cuda(ops, tab, dig), reps=MSM_REPS),
+        "plain_ms": plain_ms,
+        "bound": _bound(16 * R * B * point_bytes + W * rows * B * 4
+                        + W * rows * NT * point_bytes,
+                        W * rows * (B - NT) * prods * _imads(spec)),
+    }
+
+
+def _finish_entry(ops, S, err, plain_ms, where: str, group: str, launches: int,
+                  inputs: str) -> dict:
+    """The finish timed on window sums S, coords (W, [rows,] n, NT)
+    (MSM_REPS calls a round, and its two kernels apart, in turn) beside its
+    plain time, with its bound: an MSM_TIMES entry."""
+    from zkmember_tpu_torch.msm import finish_cuda as fin, select_reduce_cuda as k1
+
+    fp2, spec, _ = k1.kernel_consts(ops)
+    n = spec.n
+    c = _flat(S)[0]
+    W, NT = c.shape[0], c.shape[-1]
+    rows = c.shape[1] if c.ndim == 4 else 1
+    prods = 12 * (3 if fp2 else 1)
+    point_bytes = 3 * (2 if fp2 else 1) * n * 4
+    # one row's join: 4 (W - 1) doublings of 8 products and W - 1 additions
+    # of 12 (three base products each over Fp2), each two dependent waves
+    dbl_prods = 8 * (3 if fp2 else 1)
+    join_prods = (W - 1) * (4 * dbl_prods + prods)
+    return {
+        "name": k1.variant("msm_finish", fp2, n), "group": group, "path": where,
+        "launches": launches, "shape": [W, rows, NT], "max_abs_err": err, "inputs": inputs,
+        "ms": cuda_ms(lambda: fin.msm_finish_cuda(ops, S), reps=MSM_REPS),
+        "plain_ms": plain_ms,
+        "bound": _bound(W * rows * NT * point_bytes + rows * point_bytes,
+                        (W * rows * (NT - 1) * prods + rows * join_prods) * _imads(spec)),
+        "waves": 2 * 5 * (W - 1),  # from the shape: two a point operation of the chain
+        **_finish_split(lambda: fin.msm_finish_in_turn(ops, S), 2 * 5 * (W - 1)),
+    }
 
 
 def checked_run(run, what: str):
@@ -952,8 +1371,9 @@ def checked_run(run, what: str):
         name = variant("msm_finish", ops)
         want, ms = plain_timed(lambda: plain(fin.msm_finish_plain, ops, S))
         _hold(name, f"{what} {tuple(c.shape)}", out, want)
-        if c.ndim == 4:  # (W, rows, n, NT), as time_k1_finish views K1's output
-            PLAIN_RUNS.setdefault((name, (c.shape[0], c.shape[1], c.shape[3])),
+        if c.ndim in (3, 4):  # (W, [rows,] n, NT), as time_k1_finish views K1's output
+            rows = c.shape[1] if c.ndim == 4 else 1
+            PLAIN_RUNS.setdefault((name, (c.shape[0], rows, c.shape[-1])),
                                   {"ms": ms, "args": (ops, S)})
         return out
 
@@ -1418,9 +1838,12 @@ def _cli_members(stack: str, members: int, prove_id: int, other_idx: int) -> flo
     """The CLI with --stack in subprocesses: `interactive` registers members
     1 .. members - 1 and `register` the last, `root`, `prove --id prove_id`
     (inline verification true), `verify` (exit 0) and `verify` against the
-    leaf of the member at other_idx in the state file (exit 1).  Returns the
-    seconds."""
+    leaf of the member at other_idx in the state file (exit 1).  `root`
+    runs beside `prove`, and the two `verify`s beside each other: none
+    writes the state file, and no time of theirs is reported but the
+    whole.  Returns the seconds."""
     import tempfile
+    from concurrent.futures import ThreadPoolExecutor
 
     from zkmember_tpu_torch.app.member import Member
 
@@ -1435,24 +1858,28 @@ def _cli_members(stack: str, members: int, prove_id: int, other_idx: int) -> flo
         if _cli_value(out, "Number of Members:") != str(members):
             raise AssertionError(f"the {stack} registrar does not hold {members} members:\n{out}")
         root = int(_cli_value(out, "Merkle Root:"), 16)
-        if int(_cli(st + ["root"], env, tmp).strip(), 16) != root:
-            raise AssertionError(f"{stack} `root` differs from the root `register` printed")
-        out = _cli(st + ["prove", "--id", str(prove_id)], env, tmp)
+        with ThreadPoolExecutor(1) as pool:
+            root_out = pool.submit(_cli, st + ["root"], env, tmp)
+            out = _cli(st + ["prove", "--id", str(prove_id)], env, tmp)
+            if int(root_out.result().strip(), 16) != root:
+                raise AssertionError(f"{stack} `root` differs from the root `register` printed")
         if _cli_value(out, "Inline verification:") != "True":
             raise AssertionError(f"{stack} prove's inline verification failed:\n{out}")
         leaf, proof, vk = (_cli_value(out, k) for k in ("Leaf:", "Proof:", "VK:"))
         if int(_cli_value(out, "Root:"), 16) != root:
             raise AssertionError(f"{stack} prove used another root")
-        _cli(st + ["verify", "--root", hex(root), "--leaf", leaf, "--proof", proof, "--vk", vk],
-             env, tmp)
         with open(env["ZKMEMBER_STATE"]) as f:
             other = Member.from_json(json.dumps(json.load(f)[other_idx]))
         # the leaf CRH parameters, the same at every registrar size
         other_leaf = hex(other.hash(_registrar(16, stack)[1]))
         if int(other_leaf, 16) == int(leaf, 16):
             raise AssertionError("two members share a leaf")
-        _cli(st + ["verify", "--root", hex(root), "--leaf", other_leaf, "--proof", proof,
-                   "--vk", vk], env, tmp, want_rc=1)
+        with ThreadPoolExecutor(1) as pool:
+            rejected = pool.submit(_cli, st + ["verify", "--root", hex(root), "--leaf", other_leaf,
+                                               "--proof", proof, "--vk", vk], env, tmp, None, 1)
+            _cli(st + ["verify", "--root", hex(root), "--leaf", leaf, "--proof", proof, "--vk",
+                       vk], env, tmp)
+            rejected.result()
     seconds = time.time() - t0
     log(f"cli {stack}: {members} members registered, prove verified inline, verify accepts "
         f"the proof and rejects another member's leaf ({seconds:.1f}s)")
@@ -2590,8 +3017,8 @@ def phase_marlin(np_rng):
     RESULTS["marlin"] = out
 
 
-PHASES = ("device", "build", "k2", "k1", "prove", "options", "k3", "setup", "prove_v1", "cli",
-          "prove_batch", "harness", "hash", "scale", "bw6", "marlin")
+PHASES = ("device", "build", "k2", "k1", "prove", "options", "multi", "k3", "setup", "prove_v1",
+          "cli", "prove_batch", "harness", "hash", "scale", "bw6", "marlin")
 
 
 def hash_line() -> str:
@@ -2608,6 +3035,14 @@ def options_line() -> str:
         "metric": "groth16_bls12_381_options_16members", **RESULTS["options"],
         "device": RESULTS["device"], "nvidia_smi": RESULTS["smi"],
     })
+
+
+def multi_line() -> str:
+    """The multi phase's stdout line."""
+    return json.dumps({
+        "metric": "groth16_bls12_381_sharded_16members", **RESULTS["multi"],
+        "device": RESULTS["device"], "nvidia_smi": RESULTS["smi"],
+    }, default=str)
 
 
 def marlin_line() -> str:
@@ -2657,6 +3092,8 @@ def main() -> int:
             phase_prove(np_rng)
         elif name == "options":
             phase_options(np_rng)
+        elif name == "multi":
+            phase_multi(np_rng)
         elif name == "k3":
             phase_k3(np_rng)
         elif name == "setup":
@@ -2693,6 +3130,7 @@ def main() -> int:
             "nvidia_smi": RESULTS["smi"],
         }))
         print(options_line())
+        print(multi_line())
         print(json.dumps({
             "metric": "groth16_bls12_381_setup_prove_v1_16members",
             "setup_s": RESULTS["setup"], "prove_v1_s": RESULTS["prove_v1_s"],
@@ -2773,6 +3211,8 @@ def main() -> int:
                 row["bw6_launches"] = RESULTS["bw6"]["launches"][name]
                 row["marlin_launches"] = RESULTS["marlin"]["launches"][name]
                 row["marlin_budget_launches"] = RESULTS["marlin"]["budget"]["launches"][name]
+                row["multi_launches"] = {k: RESULTS["multi"][k]["launches"][name]
+                                         for k in ("min_lanes", "options")}
                 more = (RESULTS["marlin"]["mont_mul_shapes"] + RESULTS["options"]["mont_mul_shapes"]
                         + RESULTS["marlin"]["budget"]["mont_mul_shapes"])
             elif name == "mont_mul_bm":  # the depth-32 setup; BW6-761's v1 proof at n = 48;
@@ -2783,6 +3223,11 @@ def main() -> int:
                         RESULTS["marlin"]["mont_mul_bm"]] + RESULTS["hash"]["k3"]
                 row["hash_launches"] = {s: RESULTS["hash"][s]["launches"][name]
                                         for s in ("pedersen381", "pedersen761")}
+                # the sharded primitives' K3 shapes, each held under checked_run
+                prims = RESULTS["multi"]["primitives"]
+                row["multi_shapes"] = {k: v["k3_shapes"] for k, v in prims.items()
+                                       if k != "k3_timed"}
+                more += prims["k3_timed"]
             row["shapes"] = [_shape_row(m) for m in more]
             proof_1024 = RESULTS["hash"]["proof"]  # the in-process 1,024-member proof
             for key in ("launches", "setup_launches", "table_launches"):
@@ -2797,6 +3242,8 @@ def main() -> int:
     else:  # a phase alone: its line (and the kernel times)
         if "options" in RESULTS:
             print(options_line())
+        if "multi" in RESULTS:
+            print(multi_line())
         if "hash" in RESULTS:
             print(hash_line())
         if "marlin" in RESULTS:

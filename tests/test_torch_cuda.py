@@ -756,3 +756,112 @@ def test_table_budget_on_the_card_is_an_eighth_of_its_memory():
     pp = kzg.setup(8, rng=frng.test_rng(), device="cuda")
     ops = prove_lm.sw_ops(groth16.pairing_config("bls12_381"), False, "cuda")
     assert pp.max_tab_lanes == budget // straus.table_bytes(ops, 1, 1) and kzg.uses_table(pp)
+
+
+# ---------------------------------------------------------------------------
+# the sharded route (parallel.dist): the finish over D gathered lanes, the
+# D-way combine in one process, a world of one rank over NCCL
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("NT", [1, 2, 4])
+@pytest.mark.parametrize("g2", [False, True], ids=["g1", "g2"])
+def test_msm_finish_kernel_over_d_lanes_matches_plain(g2, NT):
+    """The finish at the sharded combine's widths, NT = D in {1, 2, 4}, on
+    the proof's 64 windows, equals its plain version limb for limb."""
+    _need_card()
+    spec = fs.BLS_FQ
+    W, R = 64, 1 if g2 else 4
+    ops = prove_lm.sw_ops(groth16.pairing_config("bls12_381"), g2, "cuda")
+    planes = [_planes(spec, (W * R, spec.n, NT), 90 + i).reshape(W, R, spec.n, NT)
+              for i in range(6 if g2 else 3)]
+    S = tuple((planes[2 * i], planes[2 * i + 1]) for i in range(3)) if g2 else tuple(planes)
+    want = finish_cuda.msm_finish_plain(ops, S)
+    got = finish_cuda.msm_finish_cuda(ops, S)
+    for g, w in zip(_flat(got), _flat(want)):
+        assert g.shape == (R, spec.n, 1)
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("D", [2, 4, 8])
+def test_sharded_combine_on_one_card_equals_the_unsharded_msm(D):
+    """The local half (straus.sharded_window_sums) on each of D lane blocks
+    of 2 rows of 4,096 G1 points, over the blocks of the whole table and
+    over tables built on the fly from the blocks' points, stacked as the
+    gather would (W, R, n, NT), then straus.combine_window_sums: equal limb
+    for limb to msm_precomp_program over the whole table (the blocks are
+    whole K1 tiles of 512 lanes) and, as points, to msm_program."""
+    _need_card()
+    from zkmember_tpu_torch.parallel import dist
+
+    B, W = 4096, 64
+    X, Y = _affine_planes(False, B, 60 + D, "cuda")
+    X, Y = (torch.stack([c, torch.roll(c, 3, -1)]) for c in (X, Y))
+    rng = random.Random(70 + D)
+    z = torch.as_tensor(np.stack([fs.to_lm(fs.ints_to_limbs(
+        [rng.randrange(bls.R) for _ in range(B)], 16)) for _ in range(2)]).astype(np.int64),
+        dtype=torch.int32, device="cuda")
+    ops = prove_lm.sw_ops(groth16.pairing_config("bls12_381"), False, "cuda")
+    tab = straus.table_program(ops, X, Y)
+    whole = straus.msm_precomp_program(ops, tab, W, z)
+    want = [straus.projective_to_host(bls.G1, tuple(c[r].cpu() for c in
+                                                    straus.msm_program(ops, X, Y, z, W)))
+            for r in range(2)]
+    for tabs in ([dist.block(tab, D, j, 2) for j in range(D)],
+                 [straus.table_program(ops, *(dist.block(c, D, j, -1) for c in (X, Y)))
+                  for j in range(D)]):
+        S = [straus.sharded_window_sums(ops, t, dist.block(z, D, j, -1), W)
+             for j, t in enumerate(tabs)]
+        G = tuple(torch.cat([s[i] for s in S], dim=-1) for i in range(3))
+        assert G[0].shape == (W, 2, 24, B // 16)
+        before = kernels.LAUNCHES["msm_finish_fp"]
+        got = straus.combine_window_sums(ops, G)
+        assert kernels.LAUNCHES["msm_finish_fp"] == before + 2
+        for g, w in zip(got, whole):
+            assert torch.equal(g, w)
+        for r in range(2):
+            a = straus.projective_to_host(bls.G1, tuple(c[r].cpu() for c in got))
+            assert a is not None and a == want[r]
+
+
+def test_world_of_one_rank_over_nccl_equals_msm_program():
+    """run_ranks with one rank on the card (NCCL: the gather is a real NCCL
+    all-gather): sharded_msm_program over 2 rows of 512 G1 lanes equals
+    msm_program as points on the fly, and msm_precomp_program limb for limb
+    over the kept table."""
+    _need_card()
+    from torch_world import MESH, run_calls
+    from zkmember_tpu_torch.parallel import dist
+
+    B, W = 512, 64
+    X, Y = _affine_planes(False, B, 80, "cuda")
+    X, Y = (torch.stack([c, torch.roll(c, 5, -1)]) for c in (X, Y))
+    rng = random.Random(81)
+    z = torch.as_tensor(np.stack([fs.to_lm(fs.ints_to_limbs(
+        [rng.randrange(bls.R) for _ in range(B)], 16)) for _ in range(2)]).astype(np.int64),
+        dtype=torch.int32, device="cuda")
+    ops = prove_lm.sw_ops(groth16.pairing_config("bls12_381"), False, "cuda")
+    tab = straus.table_program(ops, X, Y)
+    got, got_tab, backend = dist.run_ranks(run_calls, 1, device="cuda", args=([
+        (straus.sharded_msm_program, 1, (ops, MESH, X, Y, z, W)),
+        (straus.sharded_msm_program, 1, (ops, MESH, X, Y, z, W, tab)),
+        (lambda: torch.distributed.get_backend(), 1, ()),
+    ],))
+    assert backend == "nccl"
+    whole = straus.msm_program(ops, X, Y, z, W)
+    for g, w in zip(got_tab, straus.msm_precomp_program(ops, tab, W, z)):
+        assert torch.equal(g, w.cpu())
+    for r in range(2):
+        a, b = (straus.projective_to_host(bls.G1, tuple(c[r].cpu() for c in P))
+                for P in (got, whole))
+        assert a is not None and a == b
+
+
+def test_run_ranks_refuses_more_ranks_than_cards():
+    _need_card()
+    from torch_world import run_calls
+    from zkmember_tpu_torch.parallel import dist
+
+    with pytest.raises(ValueError, match="a card a rank"):
+        dist.run_ranks(run_calls, torch.cuda.device_count() + 1, device="cuda",
+                       args=([],))

@@ -5,9 +5,11 @@ checkpoint and proves the toy cube circuit on the CPU with the limb-major
 prover, builds a key with the reference's options from it, runs the port's own setup and v1 prover on it, commits to a
 polynomial with the port's KZG, loads the CLI, the bench harness and
 Marlin, hashes a 4-leaf Merkle tree with the device hash on the CPU (and
-loads ``entry``), and then reports what it imported.  An AST scan checks every
-module of the package (KZG, Marlin, the transcript and the polynomial
-helpers among them) and chip_smoke.py.
+loads ``entry``), and then reports what it imported.  Another fresh
+interpreter runs a sharded MSM on a 2-rank gloo world (``parallel.dist``),
+each rank asserting that it imported nothing of JAX.  An AST scan checks every
+module of the package (KZG, Marlin, the transcript, the polynomial
+helpers and the ``parallel`` subpackage among them) and chip_smoke.py.
 """
 
 import ast
@@ -65,6 +67,61 @@ print(json.dumps({
     "modules": sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "jaxlib", "zkmember_tpu."))),
 }))
 """
+
+
+RANKS_SCRIPT = r"""
+import json, random, sys
+import numpy as np
+import torch
+from zkmember_tpu_torch.curves import bls12_381 as bls
+from zkmember_tpu_torch.fields import spec as fs
+from zkmember_tpu_torch.msm import straus
+from zkmember_tpu_torch.parallel import dist
+from zkmember_tpu_torch.snark import groth16, prove_lm
+
+
+def forbidden():
+    return sorted(m for m in sys.modules
+                  if m == "jax" or m.startswith(("jax.", "jaxlib", "zkmember_tpu.")))
+
+
+def rank(mesh):
+    assert not forbidden(), forbidden()
+    rng = random.Random(3)
+    pts = [bls.G1.mul(rng.randrange(1, bls.R), bls.G1_GEN) for _ in range(4)] * 16
+    scalars = [rng.randrange(256) for _ in pts]
+
+    def plane(vals):
+        return torch.as_tensor(fs.to_lm(vals).astype(np.int64), dtype=torch.int32)
+
+    X = plane(fs.BLS_FQ.to_mont_host([p[0].v for p in pts]))
+    Y = plane(fs.BLS_FQ.to_mont_host([p[1].v for p in pts]))
+    z = plane(fs.ints_to_limbs(scalars, 16))
+    ops = prove_lm.sw_ops(groth16.pairing_config("bls12_381"), False, "cpu")
+    got = straus.projective_to_host(bls.G1, straus.sharded_msm_program(ops, mesh, X, Y, z, 2))
+    want = None
+    for s, p in zip(scalars, pts):
+        want = bls.G1.add(want, bls.G1.mul(s, p))
+    assert not forbidden(), forbidden()
+    return {"rank": mesh.rank, "equal": got == want, "modules": forbidden()}
+
+
+if __name__ == "__main__":
+    torch.set_num_threads(1)
+    print(json.dumps(dist.run_ranks(rank, 2, device="cpu")))
+"""
+
+
+def test_sharded_msm_ranks_import_no_jax(tmp_path):
+    script = tmp_path / "ranks.py"
+    script.write_text(RANKS_SCRIPT)
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = REPO
+    res = subprocess.run([sys.executable, str(script)], cwd=str(tmp_path), env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr[-4000:]
+    got = json.loads(res.stdout.strip().splitlines()[-1])
+    assert got == {"rank": 0, "equal": True, "modules": []}
 
 
 def _is_forbidden(name: str) -> bool:

@@ -1,8 +1,14 @@
-"""Curve ops over device field elements (counterpart of the projective
-short-Weierstrass subset and the twisted-Edwards ops of
-zkmember_tpu.curves.device).
+"""Curve ops over device field elements (counterpart of zkmember_tpu.curves.device).
 
-Short Weierstrass: points are (X, Y, Z) coordinate tuples whose entries are
+Jacobian short Weierstrass (``sw_*``, a = 0): (X, Y, Z) with affine
+(X/Z^2, Y/Z^3) and Z = 0 the point at infinity, over the batch-major field
+vtables (``fields.device.FpOps`` / ``Fp2Ops``, every product on K3 on the
+card).  The addition handles doubling, P + (-P) and infinity by masks, in
+the reference's formula order (dbl-2009-l, add-2007-bl), so coordinates
+match the reference's limb for limb.  The multi-device path
+(``parallel.dist.sharded_msm``) reduces over these.
+
+Projective short Weierstrass (``swp_*``): points are (X, Y, Z) coordinate tuples whose entries are
 field elements of the ops' field vtable: limb-major planes
 (``fields.lm.FpOpsLM`` or ``Fp2OpsLM``) or batch-major rows
 (``fields.device.FpOps`` or ``Fp2Ops``), which share one stacked interface;
@@ -19,6 +25,176 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+
+
+# ---------------------------------------------------------------------------
+# short Weierstrass, a = 0, Jacobian coordinates with masked special cases
+# ---------------------------------------------------------------------------
+
+
+def sw_infinity(F, shape=()):
+    return (F.zeros(shape), F.ones(shape), F.zeros(shape))
+
+
+def sw_is_infinity(F, P):
+    return F.is_zero(P[2])
+
+
+def sw_double(F, P):
+    """Jacobian doubling for a = 0 (dbl-2009-l).  Infinity (Z = 0) stays put."""
+    X, Y, Z = P
+    A = F.sqr(X)
+    B = F.sqr(Y)
+    C = F.sqr(B)
+    t = F.sqr(F.add(X, B))
+    D = F.double(F.sub(F.sub(t, A), C))  # 2((X + B)^2 - A - C)
+    E = F.add(F.double(A), A)  # 3A
+    G = F.sqr(E)
+    X3 = F.sub(G, F.double(D))
+    eight_c = F.double(F.double(F.double(C)))
+    Y3 = F.sub(F.mul(E, F.sub(D, X3)), eight_c)
+    Z3 = F.double(F.mul(Y, Z))
+    return (X3, Y3, Z3)
+
+
+def sw_add(F, P, Q):
+    """Complete batched Jacobian addition (add-2007-bl), the special cases
+    by masks: P == Q doubles, P == -Q gives infinity, and an input at
+    infinity returns the other (applied last)."""
+    X1, Y1, Z1 = P
+    X2, Y2, Z2 = Q
+    Z1Z1 = F.sqr(Z1)
+    Z2Z2 = F.sqr(Z2)
+    U1 = F.mul(X1, Z2Z2)
+    U2 = F.mul(X2, Z1Z1)
+    S1 = F.mul(Y1, F.mul(Z2, Z2Z2))
+    S2 = F.mul(Y2, F.mul(Z1, Z1Z1))
+    H = F.sub(U2, U1)
+    R = F.sub(S2, S1)
+
+    HH = F.sqr(H)
+    HHH = F.mul(H, HH)
+    V = F.mul(U1, HH)
+    X3 = F.sub(F.sub(F.sqr(R), HHH), F.double(V))
+    Y3 = F.sub(F.mul(R, F.sub(V, X3)), F.mul(S1, HHH))
+    Z3 = F.mul(H, F.mul(Z1, Z2))
+    out = (X3, Y3, Z3)
+
+    dbl = sw_double(F, P)
+    h_zero = F.is_zero(H)
+    r_zero = F.is_zero(R)
+    inf = sw_infinity(F, F.batch_shape(Z1))
+    for mask, pick in ((h_zero & r_zero, dbl), (h_zero & ~r_zero, inf),
+                       (F.is_zero(Z2), P), (F.is_zero(Z1), Q)):
+        out = tuple(F.select(mask, a, b) for a, b in zip(pick, out))
+    return out
+
+
+def sw_cond_add(F, P, Q, bit):
+    """P + Q where bit is nonzero, else P (bit: batch-shaped)."""
+    S = sw_add(F, P, Q)
+    m = bit != 0
+    return tuple(F.select(m, s, p) for s, p in zip(S, P))
+
+
+def sw_neg(F, P):
+    return (P[0], F.neg(P[1]), P[2])
+
+
+def _bits(F, bits):
+    """0/1 or digit rows (numpy or a tensor) as a tensor on F's device."""
+    return torch.as_tensor(np.asarray(bits).astype(np.int64) if not isinstance(
+        bits, torch.Tensor) else bits, device=F.device)
+
+
+def sw_scalar_mul(F, scalar_bits, P):
+    """Batched double-and-add: scalar_bits (B, nbits), MSB first (the
+    reference's lax.scan as a loop: one doubling and one masked addition a
+    bit)."""
+    bits = _bits(F, scalar_bits)
+    acc = sw_infinity(F, F.batch_shape(P[0]))
+    for k in range(bits.shape[-1]):
+        acc = sw_cond_add(F, sw_double(F, acc), P, bits[..., k])
+    return acc
+
+
+def sw_scalar_mul_windowed(F, digits, P, c_bits: int = 4):
+    """Batched windowed scalar multiplication: digits (B, n_windows), most
+    significant window first, each below 2^c_bits.  The table [0]P ..
+    [2^c - 1]P by additions, then per window c doublings, one row gather and
+    one addition."""
+    dig = _bits(F, digits)
+    acc = sw_infinity(F, F.batch_shape(P[0]))
+    tab, prev = [], acc
+    for _ in range(1 << c_bits):
+        tab.append(prev)
+        prev = sw_add(F, prev, P)
+    stacked = tuple(_stack([t[i] for t in tab]) for i in range(3))
+    for w in range(dig.shape[-1]):
+        for _ in range(c_bits):
+            acc = sw_double(F, acc)
+        acc = sw_add(F, acc, tuple(_map(lambda c: _take_entry(c, dig[..., w]), x)
+                                   for x in stacked))
+    return acc
+
+
+def _stack(cs):
+    """Coordinates (tuple aware) stacked on a new leading axis."""
+    if isinstance(cs[0], tuple):
+        return tuple(_stack([c[i] for c in cs]) for i in range(len(cs[0])))
+    return torch.stack(cs)
+
+
+def _take_entry(c, idx):
+    """c (T, B..., n), idx (B...) -> (B..., n): entry idx of each row."""
+    i = idx.long().reshape((1,) + tuple(idx.shape) + (1,) * (c.ndim - 1 - idx.ndim))
+    return torch.gather(c, 0, i.expand((1,) + tuple(c.shape[1:])))[0]
+
+
+def sw_to_affine(F, P):
+    """Batch-normalize Jacobian -> affine (x, y, is_infinity); one Fermat
+    inversion of Z (inv(0) = 0: infinity maps to (0, 0))."""
+    X, Y, Z = P
+    zinv = F.inv(Z)
+    zinv2 = F.sqr(zinv)
+    x = F.mul(X, zinv2)
+    y = F.mul(Y, F.mul(zinv2, zinv))
+    return x, y, sw_is_infinity(F, P)
+
+
+def sw_tree_reduce(F, P):
+    """Sum a batch of Jacobian points along axis 0; coordinates (B, ..., n),
+    B any count.  The batch is padded with all-zero rows (Z = 0: infinity)
+    to a power of two, then even slot 2i and odd slot 2i + 1 are added
+    round by round, as the reference's scan does.  Returns batch shape (...)."""
+    B = _leading0(P[0])
+    m = 1 << max(0, (B - 1).bit_length())
+    if m != B:
+        P = tuple(_map(lambda c: torch.nn.functional.pad(
+            c, (0, 0) * (c.ndim - 1) + (0, m - B)), x) for x in P)
+    while m > 1:
+        P = sw_add(F, tuple(_map(lambda c: c[0::2], x) for x in P),
+                   tuple(_map(lambda c: c[1::2], x) for x in P))
+        m //= 2
+    return tuple(_map(lambda c: c[0], x) for x in P)
+
+
+def sw_msm(F, scalar_bits, P):
+    """Variable-base MSM sum_i s_i P_i: scalar_bits (B, nbits) MSB first,
+    P Jacobian (B, ...); per-point double-and-add, then ``sw_tree_reduce``."""
+    return sw_tree_reduce(F, sw_scalar_mul(F, scalar_bits, P))
+
+
+def sw_msm_bool(F, mask, P):
+    """MSM with 0/1 scalars: a masked select to infinity, one tree reduction."""
+    inf = sw_infinity(F, F.batch_shape(P[0]))
+    m = _bits(F, mask) != 0
+    return sw_tree_reduce(F, tuple(F.select(m, p, i) for p, i in zip(P, inf)))
+
+
+# ---------------------------------------------------------------------------
+# short Weierstrass, a = 0, complete projective formulas (RCB15)
+# ---------------------------------------------------------------------------
 
 
 class SWOps:

@@ -142,6 +142,17 @@ def scalars_to_digits_np(scalars, nbits: int) -> np.ndarray:
     return u64_rows_to_digits(zknative.ints_to_u64(scalars, nl), nbits)
 
 
+def scalars_to_bits_np(scalars, nbits: int) -> np.ndarray:
+    """(B, nbits) uint32 0/1 rows, most significant bit first (the Jacobian
+    MSM's input, ``parallel.dist.sharded_msm``)."""
+    out = np.zeros((len(scalars), nbits), dtype=np.uint32)
+    for i, s in enumerate(scalars):
+        s = int(s)
+        for j in range(nbits):
+            out[i, j] = (s >> (nbits - 1 - j)) & 1
+    return out
+
+
 def sw_ops_for_curve(F, curve) -> cdv.SWOps:
     """The complete-formula ops bundle of a host SW curve over the vtable F."""
     return cdv.SWOps(F, cdv.b3_of(curve), f"{curve.name}/bm")

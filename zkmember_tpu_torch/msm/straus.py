@@ -20,6 +20,14 @@ Two routes share that machinery:
     (``table_budget``).
 Boolean scalars skip the windows: one masked select and one lane
 reduction (``bool_msm_program``).
+
+Over a mesh (``parallel.dist``), ``sharded_msm_program`` and
+``sharded_bool_msm_program`` split the lanes over the "msm" axis: a local
+half on each rank's lane block (``sharded_window_sums``: K1 over the
+block of the kept table, or of a table built on the fly; or the boolean
+reduction), one packed all-gather of its output lanes, and a combine over
+the gathered lanes (``combine_window_sums``: the finish; the boolean
+class's lane reduction) that every rank runs.
 """
 
 from __future__ import annotations
@@ -36,6 +44,7 @@ from zkmember_tpu_torch.msm import finish_cuda, select_reduce_cuda
 WINDOW_BITS = 4
 TABLE = 1 << WINDOW_BITS
 TAIL_WIDTH = 256  # contiguous halving above this width, even/odd rounds below
+SHARD_MIN_LANES = 64  # K1's smallest whole tiles (select_reduce_cuda.tile_shape)
 
 
 def _map_coord(f, c):
@@ -229,27 +238,138 @@ def msm_precomp_program(ops, tab, nwin: int, z, mark=None, prefix: str = ""):
     return tuple(_map_coord(lambda c: c[0], x) for x in acc)
 
 
+def msm_tile_sums(ops, tab, nwin: int, z):
+    """K1 over a table: z (P, [R,] nl, B) canonical scalar limbs against
+    table_program's records (16, R, B, 3 C n/2) -> per-thread window sums,
+    coords (W, P, R, n, B / L), most significant window first."""
+    digits = digits_from_limbs(z, nwin).contiguous()  # (W, P, [R,] B)
+    if digits.ndim == 3:  # no row axis: R = 1
+        digits = digits[:, :, None]
+    return select_reduce_cuda.select_reduce(ops, tab, digits)
+
+
 def msm_precomp_batch(ops, tab, nwin: int, z, mark=None, prefix: str = ""):
     """P MSMs against ONE precomputed table (the reference's proof-batch
     axis): z (P, [R,] nl, B) holds P proofs' scalars for the same key
-    points.  K1 runs once over digits (W, P, [R,] B); the finish runs once
-    over the P R rows of its window sums (a view).  Returns projective
-    coords with leading (P, [R]): (P, [R,] n, 1).  mark/prefix as in
-    ``msm_precomp_program``."""
+    points.  K1 runs once over digits (W, P, [R,] B) (``msm_tile_sums``);
+    the finish runs once over the P R rows of its window sums (a view).
+    Returns projective coords with leading (P, [R]): (P, [R,] n, 1).
+    mark/prefix as in ``msm_precomp_program``."""
     mark = mark or (lambda name: None)
-    digits = digits_from_limbs(z, nwin).contiguous()  # (W, P, [R,] B)
-    squeeze = digits.ndim == 3  # no row axis: R = 1
-    if squeeze:
-        digits = digits[:, :, None]
-    W, P, R, _ = digits.shape
-    S = select_reduce_cuda.select_reduce(ops, tab, digits)  # (W, P, R, n, NT)
+    S = msm_tile_sums(ops, tab, nwin, z)  # (W, P, R, n, NT)
     mark(prefix + "select_reduce")
+    W, P, R = _planes_shape(S)[:3]
     rows = tuple(_map_coord(lambda c: c.reshape((W, P * R) + c.shape[3:]), x) for x in S)
     acc = finish_cuda.msm_finish(ops, rows)  # (P R, n, 1)
-    lead = (P,) if squeeze else (P, R)
+    lead = (P,) if z.ndim == 3 else (P, R)
     acc = tuple(_map_coord(lambda c: c.reshape(lead + c.shape[1:]), x) for x in acc)
     mark(prefix + "finish")
     return acc
+
+
+def _planes_shape(S):
+    c = S[0]
+    while isinstance(c, tuple):
+        c = c[0]
+    return tuple(c.shape)
+
+
+# ---------------------------------------------------------------------------
+# sharded MSMs: the lane axis split over the mesh axis "msm"
+# ---------------------------------------------------------------------------
+
+
+def _pow2_axis(mesh) -> int:
+    D = mesh.shape["msm"]
+    if D & (D - 1):
+        raise ValueError(f"the combine needs a power-of-two msm axis, got {D}")
+    return D
+
+
+def _pad_lanes(c, B: int):
+    return _map_coord(lambda a: torch.nn.functional.pad(a, (0, B - a.shape[-1])), c)
+
+
+def sharded_window_sums(ops, tab, z, nwin: int):
+    """The local half of ``sharded_msm_program`` on one rank's lane block:
+    K1 over the block's table `tab` (16, R, b, 3 C n/2) (its block of a
+    kept table, or ``table_program`` of its points) with scalar limbs z
+    ([R,] nl, b), coords (W, [R,] n, b / L), K1's per-thread window sums,
+    most significant window first.  A block narrower than K1's
+    SHARD_MIN_LANES is padded with zero-scalar lanes on copies of lane 0,
+    whose entry 0 is the identity."""
+    b = tab.shape[2]
+    if b < SHARD_MIN_LANES:
+        pad = tab[:, :, :1].expand(-1, -1, SHARD_MIN_LANES - b, -1)
+        tab, z = torch.cat([tab, pad], dim=2), _pad_lanes(z, SHARD_MIN_LANES)
+    S = msm_tile_sums(ops, tab.contiguous(), nwin, z[None])  # (W, 1, R, n, NT)
+    squeeze = z.ndim == 2  # no row axis: R = 1
+    return tuple(_map_coord(lambda c: c[:, 0, 0] if squeeze else c[:, 0], x) for x in S)
+
+
+def combine_window_sums(ops, S):
+    """The combine of ``sharded_msm_program``: K1's window sums gathered
+    from D ranks, coords (W, [R,] n, NT), NT a power of two -> the MSM,
+    coords ([R,] n, 1): the finish (the tail over the NT lanes and the
+    Horner join; the kernel on the card, its plain version on the CPU)."""
+    NT = _lanes(S[0])
+    if NT & (NT - 1):
+        raise ValueError(f"the combine needs a power-of-two lane count, got {NT}")
+    return finish_cuda.msm_finish(ops, S)
+
+
+def _gather_lanes(P, group):
+    """Coords (..., n, t) from each rank of group -> (..., n, D t), lanes
+    d t .. (d + 1) t from group rank d (one packed all-gather)."""
+    from zkmember_tpu_torch.parallel import dist
+
+    G = dist.all_gather_points(P, group)  # (D, ..., n, t)
+    return tuple(_map_coord(lambda c: c.movedim(0, -2).flatten(-2).contiguous(), x) for x in G)
+
+
+def sharded_msm_program(ops, mesh, X, Y, z, nwin: int, tab=None, mark=None, prefix: str = ""):
+    """MSM of affine points (X, Y) ([R,] n, B) with canonical scalar limbs z
+    ([R,] nl, B), replicated, the lanes split over mesh axis "msm" (B
+    divisible by the axis size D, a power of two): each rank's
+    ``sharded_window_sums`` over its block, from its block of the kept
+    table `tab` (``table_program``'s records of all B lanes) or, with no
+    table, from its block's table built on the fly; one packed all-gather
+    of K1's window sums; ``combine_window_sums`` over the gathered lanes.
+    The single-device route plus one all-gather: blocks of whole K1 tiles
+    gather to the single-device K1 output, limb for limb.  Returns
+    projective coords ([R,] n, 1) on every rank.  mark/prefix as in
+    ``msm_precomp_program``, with the stages table (on the fly),
+    select_reduce, gather and finish."""
+    from zkmember_tpu_torch.parallel import dist
+
+    mark = mark or (lambda name: None)
+    D, j = _pow2_axis(mesh), mesh.coords["msm"]
+    zl = dist.block(z, D, j, -1)
+    if tab is None:
+        tab = table_program(ops, *(dist.block(c, D, j, -1) for c in (X, Y)))
+        mark(prefix + "table")
+    else:
+        tab = dist.block(tab, D, j, 2)
+    S = sharded_window_sums(ops, tab, zl, nwin)
+    mark(prefix + "select_reduce")
+    S = _gather_lanes(S, mesh.groups["msm"])
+    mark(prefix + "gather")
+    acc = combine_window_sums(ops, S)
+    mark(prefix + "finish")
+    return acc
+
+
+def sharded_bool_msm_program(ops, mesh, X, Y, mask):
+    """``bool_msm_program`` with the lanes split over mesh axis "msm": the
+    masked lane reduction of each rank's block, one packed all-gather, and
+    ``tree_reduce_lanes`` over the D gathered lanes (D a power of two).
+    Returns projective coords ([R,] n, 1) on every rank."""
+    from zkmember_tpu_torch.parallel import dist
+
+    D, j = _pow2_axis(mesh), mesh.coords["msm"]
+    Xl, Yl = (dist.block(c, D, j, -1) for c in (X, Y))
+    S = bool_msm_program(ops, Xl, Yl, dist.block(mask, D, j, -1))
+    return tree_reduce_lanes(ops, _gather_lanes(S, mesh.groups["msm"]))
 
 
 # ---------------------------------------------------------------------------

@@ -157,6 +157,15 @@ def _fft_core(domain: Domain, x, inverse: bool):
     return x[..., _dev_table(domain, "perm", False, x.device), :]
 
 
+def _fft_core_axis(domain: Domain, x, axis: int, inverse: bool):
+    """``_fft_core`` along any axis but the limb axis, which stays last (the
+    row and column transforms of ``parallel.dist.sharded_ntt``)."""
+    axis = axis % x.ndim
+    if axis == x.ndim - 2:
+        return _fft_core(domain, x, inverse)
+    return _fft_core(domain, x.movedim(axis, -2), inverse).movedim(-2, axis)
+
+
 def ntt(domain: Domain, coeffs):
     """Coefficients -> evaluations over the domain (Montgomery form)."""
     return _fft_core(domain, coeffs, inverse=False)

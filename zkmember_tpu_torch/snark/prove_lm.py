@@ -21,6 +21,13 @@ routes, one proof at a time: past the table budget, or with
 class runs as two masked lane reductions (``straus.bool_msm_program``)
 whose points the host adds to the general ones.  Zero-padded lanes select
 entry 0, the identity, and vanish.
+
+With a mesh (``parallel.dist``; ``prove(..., mesh=)``), every MSM splits its
+lanes over the mesh axis "msm" (``straus.sharded_msm_program``: each rank's
+block of the kept table, or of a table built on the fly where the key
+keeps none; the boolean class through ``straus.sharded_bool_msm_program``),
+while the H pipeline stays on each rank and every rank assembles the same
+proof.  Such a key is built with ``min_lanes`` = the axis size.
 """
 
 from __future__ import annotations
@@ -318,8 +325,49 @@ def _unflatten(x, it):
     return next(it)
 
 
+def warm_sharded(keys: Groth16KeysLM, mesh):
+    """The sharded counterpart of ``warm``: build the CUDA kernels (on a
+    card) and run each sharded MSM class of the key once on zero scalars
+    (G1's rows, G2's, and the boolean ones of a ``merge_bool=False`` key),
+    so the first proof over `mesh` pays no first-call costs.  Eager
+    PyTorch compiles nothing, so nothing runs in threads."""
+    _check_mesh_lanes(keys, mesh)
+    dev = keys.device
+    if dev.type == "cuda":
+        kernels.library()
+    nl = keys.fr.n
+
+    def zeros(*shape):
+        return torch.zeros(shape, dtype=torch.int32, device=dev)
+
+    straus.sharded_msm_program(keys.ops1, mesh, keys.g1_X, keys.g1_Y, zeros(4, nl, keys.B1),
+                               keys.nwin, keys.g1_tab)
+    straus.sharded_msm_program(keys.ops2, mesh, keys.g2_X, keys.g2_Y, zeros(nl, keys.B2g),
+                               keys.nwin, keys.g2_tab)
+    if keys.has_bool:
+        straus.sharded_bool_msm_program(keys.ops1, mesh, keys.g1b_X, keys.g1b_Y,
+                                        zeros(3, keys.Bb))
+        straus.sharded_bool_msm_program(keys.ops2, mesh, keys.g2b_X, keys.g2b_Y,
+                                        zeros(keys.B2b))
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def _check_mesh_lanes(keys: Groth16KeysLM, mesh) -> None:
+    """Every lane count of the key must split over the mesh axis "msm" (a
+    key built with min_lanes = its size)."""
+    D = mesh.shape["msm"]
+    lanes = {"B1": keys.B1, "B2g": keys.B2g}
+    if keys.has_bool:
+        lanes.update(Bb=keys.Bb, B2b=keys.B2b)
+    bad = {k: v for k, v in lanes.items() if v % D}
+    if bad:
+        raise ValueError(f"lane counts {bad} do not split over {D} ranks: build the key "
+                         f"with min_lanes={D}")
+
+
 def prove(keys: Groth16KeysLM, cs: ConstraintSystem, rng=None,
-          phase_times: dict | None = None) -> "groth16.Proof":
+          phase_times: dict | None = None, mesh=None) -> "groth16.Proof":
     """Groth16 prove on the limb-major stack, over any key: the kept tables
     where the key has them, else the on-the-fly route, plus the boolean
     MSMs of a ``merge_bool=False`` key.  On a key with tables and merged
@@ -327,8 +375,12 @@ def prove(keys: Groth16KeysLM, cs: ConstraintSystem, rng=None,
     entropy for the proof randomizers r, s; tests pass
     utils.rng.test_rng().  phase_times: a dict to receive host seconds per
     phase (synchronizing the card between phases); None (the default) adds
-    no synchronization."""
-    return _prove(keys, [cs], rng, phase_times)[0]
+    no synchronization.  mesh: a ``parallel.dist.Mesh``: every MSM splits
+    its lanes over the mesh's "msm" axis, each rank over its block of the
+    key's table where the key keeps one; every rank calls prove with the
+    same rng state and gets the same proof.  The key's lane counts must
+    divide by the axis size (``min_lanes``)."""
+    return _prove(keys, [cs], rng, phase_times, mesh)[0]
 
 
 def prove_batch(keys: Groth16KeysLM, cs_list, rng=None,
@@ -349,11 +401,13 @@ def prove_batch(keys: Groth16KeysLM, cs_list, rng=None,
     return _prove(keys, cs_list, rng, phase_times)
 
 
-def _prove(keys: Groth16KeysLM, cs_list, rng, phase_times) -> list["groth16.Proof"]:
+def _prove(keys: Groth16KeysLM, cs_list, rng, phase_times, mesh=None) -> list["groth16.Proof"]:
     from zkmember_tpu_torch import native as zknative
 
     if not cs_list:
         raise ValueError("prove_batch needs at least one constraint system")
+    if mesh is not None:
+        _check_mesh_lanes(keys, mesh)
     pk = keys.pk
     cfg = keys.cfg
     rng = rng or frng.secure_rng()
@@ -390,15 +444,21 @@ def _prove(keys: Groth16KeysLM, cs_list, rng, phase_times) -> list["groth16.Proo
     z2 = _to_dev(np.stack(z2), dev)  # (P, n, B2g)
     mark("witness_planes")
 
-    out4 = _msm(keys.ops1, keys.g1_tab, keys.g1_X, keys.g1_Y, z4, keys.nwin, mark, "g1_")
+    if mesh is None:
+        bool_msm = straus.bool_msm_program
+    else:
+        def bool_msm(ops, X, Y, mask):
+            return straus.sharded_bool_msm_program(ops, mesh, X, Y, mask)
+    out4 = _msm(keys.ops1, keys.g1_tab, keys.g1_X, keys.g1_Y, z4, keys.nwin, mark, "g1_",
+                mesh=mesh)
     out2 = _msm(keys.ops2, keys.g2_tab, keys.g2_X, keys.g2_Y, z2, keys.nwin, mark, "g2_",
-                max_lanes=1 << 17)  # Fp2 coordinates double a slice's table
+                max_lanes=1 << 17, mesh=mesh)  # Fp2 coordinates double a slice's table
     outs = (out4, out2)
     if keys.has_bool:  # one proof: prove_batch refuses boolean classes
         g1m, g2m = (_to_dev(m, dev) for m in masks[0])
-        outs += (_lead(straus.bool_msm_program(keys.ops1, keys.g1b_X, keys.g1b_Y, g1m)),)
+        outs += (_lead(bool_msm(keys.ops1, keys.g1b_X, keys.g1b_Y, g1m)),)
         mark("g1_bool")
-        outs += (_lead(straus.bool_msm_program(keys.ops2, keys.g2b_X, keys.g2b_Y, g2m)),)
+        outs += (_lead(bool_msm(keys.ops2, keys.g2b_X, keys.g2b_Y, g2m)),)
         mark("g2_bool")
 
     # ONE device -> host copy for every accumulator of every proof
@@ -433,11 +493,16 @@ def _lead(P):
     return tuple(straus._map_coord(lambda c: c[None], x) for x in P)
 
 
-def _msm(ops, tab, X, Y, z, nwin: int, mark, prefix: str, max_lanes: int = 1 << 18):
+def _msm(ops, tab, X, Y, z, nwin: int, mark, prefix: str, max_lanes: int = 1 << 18,
+         mesh=None):
     """One MSM family of a proof batch: from the key's table `tab` where it
     keeps one (all P proofs in one K1 launch), else on the fly in lane
-    slices of `max_lanes` (``straus.msm_program_chunked``, one proof).
-    z: (P, [R,] nl, B); returns projective coords (P, [R,] n, 1)."""
+    slices of `max_lanes` (``straus.msm_program_chunked``, one proof), or
+    with a mesh split over its "msm" axis (``straus.sharded_msm_program``
+    over the rank's block of `tab` or of its points, one proof).  z: (P,
+    [R,] nl, B); returns projective coords (P, [R,] n, 1)."""
+    if mesh is not None:
+        return _lead(straus.sharded_msm_program(ops, mesh, X, Y, z[0], nwin, tab, mark, prefix))
     if tab is not None:
         return straus.msm_precomp_batch(ops, tab, nwin, z, mark, prefix)
     return _lead(straus.msm_program_chunked(ops, X, Y, z[0], nwin, max_lanes, mark, prefix))
