@@ -22,8 +22,13 @@ Phases (each raises on failure, so the script exits non-zero):
           key artifacts/groth16_bls12_381_16.* (M = 2^14, 64 windows): warm,
           one warm-up proof, one timed proof with every kernel's launch count
           reset just before it and read just after; the proof must verify
-          and tampered proofs must not; one more proof reports seconds per
-          phase (synchronized at each phase); one more proof holds the first
+          and tampered proofs must not; one more proof, from the timed
+          proof's rng state, reports seconds per phase (synchronized at each
+          phase) with ZKMEMBER_TRACE=1 and stderr captured (traced_proof:
+          its lines parse, its phases are the table route's and add up to
+          90-100 % of its wall time, its msm_all line has 0 <
+          mfu_vs_imad_peak <= 1.05, and it equals the timed proof and
+          verifies); one more proof holds the first
           kernel call of every distinct shape against its plain version on
           the same inputs (K2's shapes and launches must match the table
           phase k2 timed, and no K2 operand may be copied); then K1 and the
@@ -74,8 +79,10 @@ Phases (each raises on failure, so the script exits non-zero):
           index lists of its json must come out equal
   prove_v1  the v1 (batch-major) prover on those keys: one warm-up proof,
           one timed proof with the launch counts reset just before it and
-          read just after (K3 only), one proof with phase times; the proof
-          verifies, tampered ones do not, and it equals the limb-major
+          read just after (K3 only), one proof with phase times, traced as
+          in `prove` (the v1 prover prints no msm_all line, as the
+          reference's); the proof verifies, tampered ones do not, and it
+          equals the limb-major
           prover's proof from the committed key with the same rng state;
           one more proof holds the first K3 call at every distinct operand
           shape against the plain version (no K3 operand may be copied)
@@ -129,7 +136,8 @@ Phases (each raises on failure, so the script exits non-zero):
           M = 2^15); setup on the card; the key saved and loaded back; warm,
           a warm-up and a timed prove_lm proof (launch counts reset just
           before it: K2, and K1 and the finish at n = 48 only); verify and
-          the tampered proofs; phases; a checked table build (K2 at n = 48)
+          the tampered proofs; phases, traced as in `prove` (its msm_all
+          line counts G2 over Fq at n = 48); a checked table build (K2 at n = 48)
           and a checked proof (K2 at n = 24, K1 and the finish at n = 48 for
           G1 and G2, no copies); the v1 proof equal to prove_lm's, and one
           more v1 proof with K3 held at every distinct shape; a batch of 4
@@ -169,9 +177,12 @@ Phases (each raises on failure, so the script exits non-zero):
 
 Progress goes to stderr.  stdout ends with a prove line, an options line, a
 multi line (the sharded proof), a setup/prove_v1 line, a prove_batch/harness/scale line, a BW6-761 line, a hash line, a
-Marlin line, the
-card line (nvidia-smi), one JSON "kernels" line and, last, {"ok": true,
-"device": ...}.
+Marlin line, a
+trace line (the three traced proofs: each one's msm_all line, null for the
+v1 prover, its wall time and the sum of its phases), the card line
+(nvidia-smi), one JSON "kernels" line and, last, {"ok": true, "device":
+...}.  Every bound_ms comes from the card's model in
+zkmember_tpu_torch/utils/obs.py.
 Imports nothing of JAX.  Needs one CUDA card; without one it exits 2.
 """
 
@@ -188,16 +199,10 @@ import time
 T0 = time.time()
 REPO = os.path.dirname(os.path.abspath(__file__))
 
-# H100 SXM published peaks (NVIDIA's datasheet): 3.35 TB/s of HBM and
-# 67 TFLOP/s fp32 outside the tensor cores = 2 flops per FMA on 128 lanes per
-# SM; the integer multiply-add pipe has half the lanes: 16.75e12 IMAD/s.  A
-# 32x32->64 product takes two IMADs (low and high word).  Bounds count the
-# multiplies only, so they are lower bounds.
-HBM_BYTES_PER_S = 3.35e12
-IMAD_PER_S = 67e12 / 4
-# operands of a field-product timing that fit the 50 MB L2 are read from L2
-# on repeated calls: its "bytes" bound is then no lower bound (in_l2 marks it)
-L2_BYTES = 50 * 2**20
+# Bounds come from the card's model in zkmember_tpu_torch/utils/obs.py (the
+# H100's peaks, the IMADs of a Montgomery product, K1's and the finish's
+# bytes and IMADs); operands of a field-product timing within its L2_BYTES
+# are read from L2 on repeated calls (in_l2 marks them).
 HOLD_CYCLES = 5_000_000  # about 3 ms of spinning at the H100's clocks
 
 RESULTS: dict = {}
@@ -221,6 +226,12 @@ MSM_REPS = 5  # calls a round when K1 or the finish is timed: each takes 2-170 m
 # checked_run held at that shape in the current phase: time_k1_finish times the
 # kernel on those inputs instead of running the slow plain version again
 PLAIN_RUNS: dict = {}
+TRACES: list = []  # one entry a traced proof (traced_proof): its msm_all line, wall, phases
+# the phase names of a traced proof, in order, on prove_lm's table route and the v1 prover
+LM_PHASES = ("matrix_evals", "h_pipeline", "witness_planes", "g1_select_reduce", "g1_finish",
+             "g2_select_reduce", "g2_finish", "fetch", "assemble")
+V1_PHASES = ("matrix_evals", "h_kernel", "h_to_host", "msm_a", "msm_b1", "msm_b2", "msm_h",
+             "msm_l", "assemble")
 
 
 def log(msg: str) -> None:
@@ -636,6 +647,7 @@ def phase_prove(np_rng):
     prove_lm.prove(keys, cs, rng=rng)
     log(f"warm-up proof in {time.time() - t:.2f}s")
 
+    state = rng.getstate()
     kernels.reset_launches()
     torch.cuda.synchronize()
     t = time.time()
@@ -655,10 +667,10 @@ def phase_prove(np_rng):
     RESULTS["prove_s"] = prove_s
     RESULTS["launches"] = launches
     STATE.update(keys=keys, cs=cs, rng=rng)
-    phases: dict = {}
-    t = time.time()
-    prove_lm.prove(keys, cs, rng=rng, phase_times=phases)
-    RESULTS["breakdown"] = {"total_s": time.time() - t, **phases}
+    # the timed proof's rng state once more, traced (the trace synchronizes at each phase)
+    RESULTS["breakdown"] = traced_proof(
+        lambda phases: prove_lm.prove(keys, cs, rng=_rng_at(state), phase_times=phases),
+        "proof", LM_PHASES, proof, keys.pk.vk, public)
     log("phases of a proof synchronized at each phase: " + ", ".join(
         f"{k} {v:.3f}s" for k, v in RESULTS["breakdown"].items()))
 
@@ -1240,23 +1252,19 @@ def _k1_entry(ops, tab, dig, err, plain_ms, where: str, group: str, launches: in
     """K1 timed on records `tab` and digits (W, [P,] R, B) (MSM_REPS calls a
     round) beside its plain time, with its bound: an MSM_TIMES entry."""
     from zkmember_tpu_torch.msm import select_reduce_cuda as k1
+    from zkmember_tpu_torch.utils import obs
 
     fp2, spec, _ = k1.kernel_consts(ops)
     n = spec.n
     W, B, R = dig.shape[0], dig.shape[-1], dig.shape[-2]
     P = dig.shape[1] if dig.ndim == 4 else 1
     NT = B // k1.tile_shape(B)[1]
-    prods = 12 * (3 if fp2 else 1)  # base products of one complete addition
-    point_bytes = 3 * (2 if fp2 else 1) * n * 4
-    rows = P * R
     return {
         "name": k1.variant("select_reduce", fp2, n), "group": group, "path": where,
         "launches": launches, "shape": list(dig.shape), "max_abs_err": err, "inputs": inputs,
         "ms": cuda_ms(lambda: k1.select_reduce_cuda(ops, tab, dig), reps=MSM_REPS),
         "plain_ms": plain_ms,
-        "bound": _bound(16 * R * B * point_bytes + W * rows * B * 4
-                        + W * rows * NT * point_bytes,
-                        W * rows * (B - NT) * prods * _imads(spec)),
+        "bound": obs.bound(*obs.select_reduce_work(n, fp2, W, P, R, B, NT)),
     }
 
 
@@ -1266,25 +1274,21 @@ def _finish_entry(ops, S, err, plain_ms, where: str, group: str, launches: int,
     (MSM_REPS calls a round, and its two kernels apart, in turn) beside its
     plain time, with its bound: an MSM_TIMES entry."""
     from zkmember_tpu_torch.msm import finish_cuda as fin, select_reduce_cuda as k1
+    from zkmember_tpu_torch.utils import obs
 
     fp2, spec, _ = k1.kernel_consts(ops)
     n = spec.n
     c = _flat(S)[0]
     W, NT = c.shape[0], c.shape[-1]
     rows = c.shape[1] if c.ndim == 4 else 1
-    prods = 12 * (3 if fp2 else 1)
-    point_bytes = 3 * (2 if fp2 else 1) * n * 4
-    # one row's join: 4 (W - 1) doublings of 8 products and W - 1 additions
-    # of 12 (three base products each over Fp2), each two dependent waves
-    dbl_prods = 8 * (3 if fp2 else 1)
-    join_prods = (W - 1) * (4 * dbl_prods + prods)
+    # one row's join: 4 (W - 1) doublings and W - 1 additions, each two
+    # dependent waves
     return {
         "name": k1.variant("msm_finish", fp2, n), "group": group, "path": where,
         "launches": launches, "shape": [W, rows, NT], "max_abs_err": err, "inputs": inputs,
         "ms": cuda_ms(lambda: fin.msm_finish_cuda(ops, S), reps=MSM_REPS),
         "plain_ms": plain_ms,
-        "bound": _bound(W * rows * NT * point_bytes + rows * point_bytes,
-                        (W * rows * (NT - 1) * prods + rows * join_prods) * _imads(spec)),
+        "bound": obs.bound(*obs.finish_work(n, fp2, W, rows, NT)),
         "waves": 2 * 5 * (W - 1),  # from the shape: two a point operation of the chain
         **_finish_split(lambda: fin.msm_finish_in_turn(ops, S), 2 * 5 * (W - 1)),
     }
@@ -1409,6 +1413,7 @@ def time_k2(np_rng, proof_shapes: dict, lanes: int | None, path: str = "proof"):
     (`host_us`)."""
     from zkmember_tpu_torch import kernels
     from zkmember_tpu_torch.fields import lm_cuda, spec as fs
+    from zkmember_tpu_torch.utils import obs
 
     names = {s.name: s for s in (fs.BLS_FR, fs.BLS_FQ, fs.BW6_FR, fs.BW6_FQ)}
     cases = [(names[f], sa, sb, k) for (f, sa, sb), k in
@@ -1432,9 +1437,9 @@ def time_k2(np_rng, proof_shapes: dict, lanes: int | None, path: str = "proof"):
             "device_ms": device_ms(raw),
             "host_us": host_us(lambda: lm_cuda.mont_mul_cuda(spec, a, b)),
             "plain_ms": cuda_ms(lambda: lm_cuda.mont_mul_plain(spec, a, b), reps=1),
-            "bound": _bound((a.numel() + b.numel() + got.numel()) * 4,
-                            n_elem * _imads(spec)),
-            "in_l2": (a.numel() + b.numel() + got.numel()) * 4 <= L2_BYTES,
+            "bound": obs.bound((a.numel() + b.numel() + got.numel()) * 4,
+                               n_elem * obs.mont_mul_imads(spec.n)),
+            "in_l2": (a.numel() + b.numel() + got.numel()) * 4 <= obs.L2_BYTES,
         }
         del keep
         out.append(r)
@@ -1462,12 +1467,6 @@ def _shape_row(r: dict) -> dict:
                              "tail_ms", "join_ms", "waves", "wave_us")
            if k in r}
     return {**row, "bound_ms": r["bound"][0], "bound_by": r["bound"][1], "library_ms": None}
-
-
-def _bound(nbytes: float, imads: float):
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = imads / IMAD_PER_S * 1e3
-    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
 def phase_profile():
@@ -1580,13 +1579,6 @@ def mont_mul_bm_plain_rows(spec, a, b, chunk: int = 1 << 21):
     return torch.cat(parts).reshape(shape)
 
 
-def _imads(spec) -> int:
-    """IMADs of one CIOS Montgomery product of N = n/2 words: 2 N^2 full
-    32x32->64 products (two IMADs each) and N low-word m products."""
-    words = spec.n // 2
-    return 4 * words * words + words
-
-
 def phase_k3(np_rng):
     from zkmember_tpu_torch.fields import field_cuda, spec as fs
 
@@ -1629,6 +1621,7 @@ def time_k3(np_rng, spec, shape, b_shape) -> dict:
     the host's time a call (`host_us`), the plain version, the bound."""
     from zkmember_tpu_torch import kernels
     from zkmember_tpu_torch.fields import field_cuda
+    from zkmember_tpu_torch.utils import obs
 
     k3 = field_cuda.mont_mul_bm_cuda
     a = rand_rows(np_rng, spec, shape)
@@ -1645,8 +1638,8 @@ def time_k3(np_rng, spec, shape, b_shape) -> dict:
         "device_ms": device_ms(raw),
         "host_us": host_us(lambda: k3(spec, a, b)),
         "plain_ms": cuda_ms(lambda: mont_mul_bm_plain_rows(spec, a, b), reps=1),
-        "bound": _bound(nbytes, rows * _imads(spec)),
-        "in_l2": nbytes <= L2_BYTES,
+        "bound": obs.bound(nbytes, rows * obs.mont_mul_imads(spec.n)),
+        "in_l2": nbytes <= obs.L2_BYTES,
     }
     del keep
     log(f"K3 at {shape} x {tuple(b.shape)}: wrapper {r['ms']:.4f} ms, kernel "
@@ -1747,10 +1740,10 @@ def phase_prove_v1():
         raise AssertionError(f"the v1 proof launched limb-major kernels: {launches}")
     RESULTS["prove_v1_s"] = prove_s
     RESULTS["launches_v1"] = launches
-    phases: dict = {}
-    t = time.time()
-    groth16.prove(pk, cs, rng=_rng_at(state), device="cuda", phase_times=phases)
-    RESULTS["breakdown_v1"] = {"total_s": time.time() - t, **phases}
+    RESULTS["breakdown_v1"] = traced_proof(
+        lambda phases: groth16.prove(pk, cs, rng=_rng_at(state), device="cuda",
+                                     phase_times=phases),
+        "v1 proof", V1_PHASES, proof, vk, public)
     log("phases of a v1 proof synchronized at each phase: " + ", ".join(
         f"{k} {v:.3f}s" for k, v in RESULTS["breakdown_v1"].items()))
 
@@ -1767,6 +1760,83 @@ def phase_prove_v1():
     checked = checked_v1_proof(pk, cs, _rng_at(state))
     if (checked.a, checked.b, checked.c) != (proof.a, proof.b, proof.c):
         raise AssertionError("the checked v1 proof differs from the timed one")
+
+
+def traced_proof(prove, what: str, names, want, vk, public) -> dict:
+    """prove(phase_times) with ZKMEMBER_TRACE=1 and stderr captured.  Raise
+    unless every line the prover prints is '# ' + JSON or a row of its
+    phase table; the phase lines carry `names` in order, as the phase
+    times do; their seconds add up to at most the proof's wall time and
+    at least 90 % of it; a prove_lm proof prints one msm_all line over its
+    g1_*/g2_* phases with 0 < mfu_vs_imad_peak <= 1.05 (the v1 prover
+    prints none, as the reference's); and the proof equals `want` (the
+    untraced proof from the same rng state) and verifies.  Records the
+    msm_all line in TRACES; returns the phase times with total_s, the
+    proof's wall time."""
+    import contextlib
+    import io
+    import re
+
+    import torch
+
+    from zkmember_tpu_torch.snark import groth16
+
+    phases: dict = {}
+    buf = io.StringIO()
+    old = os.environ.get("ZKMEMBER_TRACE")
+    os.environ["ZKMEMBER_TRACE"] = "1"
+    torch.cuda.synchronize()
+    try:
+        with contextlib.redirect_stderr(buf):
+            t = time.perf_counter()
+            proof = prove(phases)
+            wall = time.perf_counter() - t
+    finally:
+        if old is None:
+            del os.environ["ZKMEMBER_TRACE"]
+        else:
+            os.environ["ZKMEMBER_TRACE"] = old
+    recs, table = [], {}
+    for line in buf.getvalue().splitlines():
+        m = re.fullmatch(r"  (\S+)\s+(\d+\.\d{3})s", line)
+        if m:
+            table[m.group(1)] = float(m.group(2))
+        elif line.startswith("# "):
+            recs.append(json.loads(line[2:]))
+        else:
+            raise AssertionError(f"the traced {what} printed {line!r}")
+    lines = [r for r in recs if "phase" in r]
+    metrics = [r for r in recs if "phase" not in r]
+    got = tuple(r["phase"] for r in lines)
+    if got != tuple(names) or tuple(phases) != tuple(names) or set(table) != set(names):
+        raise AssertionError(f"the traced {what}'s phases {got} (table {sorted(table)}) are "
+                             f"not {names}")
+    total = sum(phases.values())
+    if abs(sum(r["s"] for r in lines) - total) > 5e-5 * len(lines) + 1e-9:
+        raise AssertionError(f"the traced {what}'s lines do not carry its phase times")
+    if not 0.9 * wall <= total <= wall:
+        raise AssertionError(f"the traced {what}'s phases add up to {total:.4f} s of its "
+                             f"{wall:.4f} s")
+    msm = None
+    if names == V1_PHASES:
+        if metrics:
+            raise AssertionError(f"the traced {what} printed {metrics}")
+    else:
+        if [r.get("metric") for r in metrics] != ["msm_all"]:
+            raise AssertionError(f"the traced {what} printed {metrics}, not one msm_all line")
+        msm = metrics[0]
+        msm_s = sum(v for k, v in phases.items() if k.startswith(("g1_", "g2_")))
+        if abs(msm["seconds"] - msm_s) > 1e-4 or not 0 < msm["mfu_vs_imad_peak"] <= 1.05:
+            raise AssertionError(f"the traced {what}'s msm_all line {msm} (MSM phases "
+                                 f"{msm_s:.4f} s)")
+    if not _same_proof(proof, want):
+        raise AssertionError(f"the traced {what} differs from the untraced one")
+    if not groth16.verify(vk, public, proof):
+        raise AssertionError(f"the traced {what} does not verify")
+    TRACES.append({"path": what, "wall_s": wall, "phases_s": total, "msm_all": msm})
+    log(f"traced {what}: {len(lines)} phase lines, {total:.4f} s of {wall:.4f} s; "
+        + (f"msm_all {json.dumps(msm)}" if msm else "no msm_all line (v1)"))
+    return {"total_s": wall, **phases}
 
 
 def _rng_at(state):
@@ -2539,10 +2609,9 @@ def phase_bw6(np_rng):
 
         _holds_and_tamper_fails(keys.cfg, vk, public, proof, "BW6-761 proof")
 
-        phases = {}
-        t = time.time()
-        prove_lm.prove(keys, cs, rng=_rng_at(state), phase_times=phases)
-        out["breakdown"] = {"total_s": time.time() - t, **phases}
+        out["breakdown"] = traced_proof(
+            lambda phases: prove_lm.prove(keys, cs, rng=_rng_at(state), phase_times=phases),
+            "bw6 proof", LM_PHASES, proof, vk, public)
         log("bw6 phases of a proof synchronized at each phase: " + ", ".join(
             f"{k} {v:.3f}s" for k, v in out["breakdown"].items()))
 
@@ -3153,6 +3222,7 @@ def main() -> int:
         }))
         print(hash_line())
         print(marlin_line())
+        print(json.dumps({"trace": TRACES}))
         print(RESULTS["smi"])
         sources = {
             "mont_mul": ("zkmember_tpu_torch/csrc/mont_mul.cu",
@@ -3250,6 +3320,8 @@ def main() -> int:
             print(marlin_line())
         if MSM_TIMES:
             print(json.dumps({"msm_times": MSM_TIMES}))
+        if TRACES:
+            print(json.dumps({"trace": TRACES}))
     log("done")
     return 0
 

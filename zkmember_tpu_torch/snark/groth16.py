@@ -473,7 +473,9 @@ def prove(pk: ProvingKey, cs: ConstraintSystem, rng=None, device=None,
     rng defaults to OS entropy for the randomizers r, s; tests pass
     utils.rng.test_rng().  phase_times: a dict to receive host seconds per
     phase (synchronizing the card between phases); None adds no
-    synchronization."""
+    synchronization.  ZKMEMBER_TRACE (read at each call) set: every
+    phase's line goes to stderr as '# {"phase": name, "s": seconds}', then
+    the phase table."""
     from zkmember_tpu_torch import native as zknative
 
     cfg = pairing_config(pk.curve)
@@ -483,7 +485,8 @@ def prove(pk: ProvingKey, cs: ConstraintSystem, rng=None, device=None,
     rr = frng.field_element(rng, r_mod)
     ss = frng.field_element(rng, r_mod)
     dev = devmod.resolve(device)
-    mark = obs.PhaseClock(phase_times, dev)
+    prof = obs.trace_profiler()
+    mark = obs.PhaseClock(phase_times, dev, prof)
 
     spec = cfg.fr_spec
     M = pk.domain_size
@@ -533,6 +536,8 @@ def prove(pk: ProvingKey, cs: ConstraintSystem, rng=None, device=None,
     C = g1.add(C, g1.mul(rr, B1))
     C = g1.add(C, g1.mul((-rr * ss) % r_mod, pk.delta_g1))
     mark("assemble")
+    if prof is not None:
+        prof.dump()
     return Proof(curve=pk.curve, a=A, b=B2, c=C)
 
 

@@ -40,7 +40,7 @@ from zkmember_tpu_torch import kernels
 from zkmember_tpu_torch.curves import device as cdv
 from zkmember_tpu_torch.fields import lm
 from zkmember_tpu_torch.fields import spec as fs
-from zkmember_tpu_torch.msm import straus
+from zkmember_tpu_torch.msm import select_reduce_cuda, straus
 from zkmember_tpu_torch.ntt import lm as nttlm
 from zkmember_tpu_torch.r1cs.cs import ConstraintSystem
 from zkmember_tpu_torch.snark import groth16
@@ -379,8 +379,19 @@ def prove(keys: Groth16KeysLM, cs: ConstraintSystem, rng=None,
     its lanes over the mesh's "msm" axis, each rank over its block of the
     key's table where the key keeps one; every rank calls prove with the
     same rng state and gets the same proof.  The key's lane counts must
-    divide by the axis size (``min_lanes``)."""
-    return _prove(keys, [cs], rng, phase_times, mesh)[0]
+    divide by the axis size (``min_lanes``).
+
+    ZKMEMBER_TRACE (read at each call) set: every phase's line goes to
+    stderr as '# {"phase": name, "s": seconds}' (the card synchronized at
+    each phase), then one '# {"metric": "msm_all", ...}' line over the
+    g1_* and g2_* phases (``obs.throughput_line``) and the phase table;
+    with a mesh only rank 0 prints."""
+    prof = obs.trace_profiler() if mesh is None or mesh.rank == 0 else None
+    proof = _prove(keys, [cs], rng, phase_times, mesh, prof)[0]
+    if prof is not None:
+        prof.emit(_msm_throughput(keys, prof.summary(), mesh))
+        prof.dump()
+    return proof
 
 
 def prove_batch(keys: Groth16KeysLM, cs_list, rng=None,
@@ -401,7 +412,8 @@ def prove_batch(keys: Groth16KeysLM, cs_list, rng=None,
     return _prove(keys, cs_list, rng, phase_times)
 
 
-def _prove(keys: Groth16KeysLM, cs_list, rng, phase_times, mesh=None) -> list["groth16.Proof"]:
+def _prove(keys: Groth16KeysLM, cs_list, rng, phase_times, mesh=None,
+           prof: obs.Profiler | None = None) -> list["groth16.Proof"]:
     from zkmember_tpu_torch import native as zknative
 
     if not cs_list:
@@ -416,7 +428,7 @@ def _prove(keys: Groth16KeysLM, cs_list, rng, phase_times, mesh=None) -> list["g
     fr = keys.fr
     M = keys.M
     dev = keys.device
-    mark = obs.PhaseClock(phase_times, dev)
+    mark = obs.PhaseClock(phase_times, dev, prof)
     nf = zknative.NativeField.get(fr.p, fr.n)
 
     dabc = []
@@ -506,6 +518,53 @@ def _msm(ops, tab, X, Y, z, nwin: int, mark, prefix: str, max_lanes: int = 1 << 
     if tab is not None:
         return straus.msm_precomp_batch(ops, tab, nwin, z, mark, prefix)
     return _lead(straus.msm_program_chunked(ops, X, Y, z[0], nwin, max_lanes, mark, prefix))
+
+
+def _family_imads(ops, R: int, B: int, nwin: int, kept: bool, max_lanes: int, D: int) -> int:
+    """IMADs one rank's card runs for one MSM family of ``_msm`` over R rows
+    of B lanes: the per-call tables where the key keeps none, K1, the
+    finish, and the on-the-fly route's slice additions; with D > 1 ranks K1
+    and the tables over this rank's block, the finish over the gathered
+    lanes (``straus.sharded_msm_program``)."""
+    fp2, spec, _ = select_reduce_cuda.kernel_consts(ops)
+    n = spec.n
+    if D > 1:  # a block narrower than K1's tiles is padded after its table
+        slices, blk = 1, B // D
+        b = max(blk, straus.SHARD_MIN_LANES)
+    else:
+        slices, blk = max(1, B // max_lanes), min(B, max_lanes)
+        b = blk
+    nt = b // select_reduce_cuda.tile_shape(b)[1]
+    one = (obs.select_reduce_work(n, fp2, nwin, 1, R, b, nt)[1]
+           + obs.finish_work(n, fp2, nwin, R, nt * D)[1]
+           + (0 if kept else obs.table_work(n, fp2, R, blk)))
+    return slices * one + obs.add_imads(n, fp2, (slices - 1) * R)
+
+
+def _bool_imads(ops, R: int, B: int, D: int) -> int:
+    """IMADs of a boolean MSM over R rows of B lanes on one rank: the masked
+    lane reduction of its block, then, with D > 1, over the D gathered lanes."""
+    fp2, spec, _ = select_reduce_cuda.kernel_consts(ops)
+    return obs.add_imads(spec.n, fp2, R * (B // D - 1 + D - 1))
+
+
+def _msm_throughput(keys: Groth16KeysLM, phases: dict, mesh=None) -> str:
+    """The trace's msm_all line for one proof over the seconds of its g1_*
+    and g2_* phases.  u32_mults is the reference's count
+    (``obs.straus_msm_work`` for the four G1 rows of M lanes and the G2 row)
+    at the base field's limb count, where the G1 and G2 coordinates live;
+    imads counts what this rank's card ran on the route the proof took."""
+    cfg = keys.cfg
+    nq, nbits = cfg.fq_spec.n, cfg.r.bit_length()
+    u32 = (4 * obs.straus_msm_work(keys.M, nq, nbits)
+           + obs.straus_msm_work(keys.B2g, nq, nbits, fp2=keys.pk.curve == "bls12_381"))
+    D = 1 if mesh is None else mesh.shape["msm"]
+    imads = (_family_imads(keys.ops1, 4, keys.B1, keys.nwin, keys._want_g1_tab, 1 << 18, D)
+             + _family_imads(keys.ops2, 1, keys.B2g, keys.nwin, keys._want_g2_tab, 1 << 17, D))
+    if keys.has_bool:
+        imads += _bool_imads(keys.ops1, 3, keys.Bb, D) + _bool_imads(keys.ops2, 1, keys.B2b, D)
+    seconds = sum(s for name, s in phases.items() if name.startswith(("g1_", "g2_")))
+    return obs.throughput_line("msm_all", u32, seconds, imads)
 
 
 def _assemble(cfg, pk, rr, ss, g1_accs, b2_acc) -> "groth16.Proof":
