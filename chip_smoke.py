@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--seed S]
         [--phases device,build,k2,k1,prove,options,multi,k3,setup,prove_v1,cli,
-                  prove_batch,harness,hash,scale,bw6,marlin[,profile]]
+                  prove_batch,harness,bench,hash,scale,bw6,marlin[,bench_sweep][,profile]]
 
 Phases (each raises on failure, so the script exits non-zero):
   device  the card's name and power limit (nvidia-smi)
@@ -102,6 +102,21 @@ Phases (each raises on failure, so the script exits non-zero):
   harness python -m zkmember_tpu_torch.app.bench_harness --sizes 16
           --checkpoint-dir artifacts --reps 3, then the same with --batch 4, in
           subprocesses: the rows parse, verify is true, artifacts/ is unchanged
+  bench   python3 bench_cuda.py in a subprocess as users run it (16 members,
+          the committed key): its last stdout line has bench.py's keys and
+          metric plus the card line, value > 0, stderr shows the key load and
+          both `# [warm]` lines, artifacts/ is unchanged; then
+          bench_cuda.main at 64 members, whose key the card's copy lacks:
+          setup on the card into a temporary directory (K3, K2, K1 and the
+          finish launched, the proof verified), a second run over that
+          directory loads the key and writes nothing (no K3); then setup from
+          the rng state that made the committed 64-member key reproduces its
+          12 query arrays (SHA-256 digests), vk, beta_g1 and delta_g1
+  bench_sweep (optional, not in the defaults) bench_cuda.main at each of
+          bench.py's sizes (16, 50, 64, 100, 128, 512, 1,000, 1,024 members),
+          setup into a temporary directory where the card's copy lacks the
+          key: one {"bench_sweep": ...} stdout line a size (value, setup_s,
+          M, launches)
   hash    Pedersen hashing and Merkle levels on the card, both stacks
           (pedersen381: Jubjub over BLS12-381 Fr, n = 16; pedersen761: n = 24):
           Member.hash_batch over 1,024 members, then the membership tree
@@ -175,8 +190,9 @@ Phases (each raises on failure, so the script exits non-zero):
           torch.profiler: the kernels' device time, the device's idle
           share, the top kernels
 
-Progress goes to stderr.  stdout ends with a prove line, an options line, a
-multi line (the sharded proof), a setup/prove_v1 line, a prove_batch/harness/scale line, a BW6-761 line, a hash line, a
+Progress goes to stderr; the bench phases' in-process bench_cuda.main runs print
+their own result lines to stdout as they go.  stdout ends with a prove line, an options line, a
+multi line (the sharded proof), a setup/prove_v1 line, a prove_batch/harness/scale line, a BW6-761 line, a bench line, a hash line, a
 Marlin line, a
 trace line (the three traced proofs: each one's msm_all line, null for the
 v1 prover, its wall time and the sum of its phases), the card line
@@ -339,11 +355,10 @@ def rand_planes(np_rng, spec, shape):
 def phase_device():
     import torch
 
+    import bench_cuda
+
     name = torch.cuda.get_device_name(0)
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        check=True, capture_output=True, text=True, timeout=60,
-    ).stdout.strip().splitlines()[0]
+    smi = bench_cuda.device_label(torch.device("cuda"))
     RESULTS["device"] = name
     RESULTS["smi"] = smi
     log(f"device: {name} | nvidia-smi: {smi} | torch {torch.__version__} cuda {torch.version.cuda}")
@@ -582,12 +597,14 @@ def phase_k1(np_rng, py_rng):
 
 
 def _registrar(members: int, stack: str = "pedersen381", people=None):
-    """The mock registrar of `members` on a curve stack, built exactly as
-    bench.py builds it (once per run): its CRH parameters, leaf digests and
-    tree, and the rng's state after the parameters (what bench.py's setup
-    found).  people: the members to take, where another process built the
-    registrar (a member's digest covers its join time)."""
+    """The mock registrar of `members` on a curve stack, built as bench.py and
+    bench_cuda.py build it (once per run; bench_cuda.membership_tree): its
+    CRH parameters, leaf digests and tree, and the rng's state after the
+    parameters (what the bench's setup finds).  people: the members to take,
+    where another process built the registrar (a member's digest covers its
+    join time)."""
     if (stack, members) not in CIRCUITS:
+        import bench_cuda
         from zkmember_tpu_torch.app import circuits as app
         from zkmember_tpu_torch.app.member import generate_members
         from zkmember_tpu_torch.utils import rng as frng
@@ -597,33 +614,29 @@ def _registrar(members: int, stack: str = "pedersen381", people=None):
         cfg = app.get_config(stack)
         leaf_params, node_params = cfg.setup_params(rng)
         people = PEOPLE.setdefault((stack, members), people or generate_members(members))
-        digests = [m.hash(leaf_params) for m in people]
-        tree = app.new_membership_tree(leaf_params, node_params, digests)
+        digests, tree = bench_cuda.membership_tree(leaf_params, node_params, people)
         CIRCUITS[stack, members] = (cfg, leaf_params, node_params, digests, tree, rng.getstate())
         log(f"{members}-member {stack} registrar built in {time.time() - t:.1f}s")
     return CIRCUITS[stack, members]
 
 
 def _member_circuit(members: int, idx: int, stack: str = "pedersen381"):
-    """Member idx's membership circuit and its public inputs (root, leaf)."""
-    from zkmember_tpu_torch.app import circuits as app
+    """Member idx's membership circuit and its public inputs (root, leaf):
+    bench_cuda.member_circuit over the registrar."""
+    import bench_cuda
 
-    cfg, leaf_params, node_params, digests, tree, _ = _registrar(members, stack)
-    circuit = app.MerkleTreeCircuit(
-        config=cfg, leaf_params=leaf_params, node_params=node_params,
-        root=tree.root(), leaf_hash=digests[idx], authentication_path=tree.generate_proof(idx),
-    )
-    return circuit.generate_constraints(), [tree.root(), digests[idx]]
+    return bench_cuda.member_circuit(*_registrar(members, stack)[:5], idx)
 
 
 def _membership_circuit(members: int, stack: str = "pedersen381"):
-    """bench.py's circuit, the proof of a random member of the registrar (built
-    once per run), and a fresh rng in the state bench.py's setup found."""
-    import random
+    """The bench's circuit, the proof of its member (bench_cuda.member_index)
+    of the registrar (built once per run), and a fresh rng in the state the
+    bench's setup finds."""
+    import bench_cuda
 
     key = ("circuit", stack, members)
     if key not in CIRCUITS:
-        CIRCUITS[key] = _member_circuit(members, random.Random(0).randrange(members), stack)
+        CIRCUITS[key] = _member_circuit(members, bench_cuda.member_index(members), stack)
     cs, public = CIRCUITS[key]
     return cs, public, _rng_at(_registrar(members, stack)[-1])
 
@@ -2096,15 +2109,16 @@ def _run_module(module: str, args, want_rc: int = 0):
     return res.stdout
 
 
+def _listing(d: str) -> list:
+    """A directory's files and their modification times."""
+    return sorted((f, os.stat(os.path.join(d, f)).st_mtime_ns) for f in os.listdir(d))
+
+
 def phase_harness():
     """The bench harness in subprocesses: the Groth16 grid at 16 members with
     the committed key (loaded, not written), then --batch 4."""
     art = os.path.join(REPO, "artifacts")
-
-    def listing():
-        return sorted((f, os.stat(os.path.join(art, f)).st_mtime_ns) for f in os.listdir(art))
-
-    before = listing()
+    before = _listing(art)
     base = ["--sizes", "16", "--checkpoint-dir", "artifacts", "--reps", "3"]
     out = {}
     for label, args in (("grid", base), ("batch", base + ["--batch", "4"])):
@@ -2125,11 +2139,186 @@ def phase_harness():
             or batch[0].get("verified") is not True or batch[0].get("batch") != 4
             or not batch[0].get("proofs_per_sec", 0) > 0):
         raise AssertionError(f"the --batch 4 row is not a verified batch of 4: {batch}")
-    if listing() != before:
+    if _listing(art) != before:
         raise AssertionError("the harness wrote into artifacts/ although the key exists")
     RESULTS["harness"] = out
     log(f"harness: grid rows {names} verified; --batch 4 at {batch[0]['proofs_per_sec']} "
         "proofs/s, verified; artifacts/ unchanged")
+
+
+# the bench phase: bench_cuda.py as users run it (the committed 16-member key)
+# and its setup branch at a size whose key the card's copy lacks
+BENCH_SETUP_MEMBERS = 64
+BENCH_SWEEP = (16, 50, 64, 100, 128, 512, 1000, 1024)  # bench.py's sizes (benches/groth16.rs)
+# artifacts/groth16_bls12_381_64.*, which .chiprunignore keeps off the card: each query
+# array's SHA-256 (its uint32 bytes, as checkpoint.query_arrays gives them) and the json's
+# vk, beta_g1 and delta_g1.  That key came from the JAX bench harness's sweep (one fresh
+# test rng over the sizes), not from bench.py's draws: its setup found a fresh test rng
+# after KEY64_DRAWS field-element draws (tests/test_torch_bench.py holds its host half)
+KEY64_DRAWS = 29
+KEY64_SHA256 = {
+    "a_query_x": "3e240f38c9e9591105715df27766fdf31074c984496d354c0f025e4faaa9f5a6",
+    "a_query_y": "4f7b23f5759e6acfbd068408785d22dccf2ffe5614e747d1444209d91ae0be4b",
+    "b_g1_query_x": "9985f8cf116fa1dc109beaab28130a188e3d8e4b3e63559a10470c74d14b344f",
+    "b_g1_query_y": "572453fbf64860c146be26cf1352723c414c39f3e7429fbf71b17fa4a49d84e5",
+    "b_g2_query_x_c0": "58ae2c1bd11365441589ee1a06b0c6cc91591e35a6c0f283ad914fdc991875d5",
+    "b_g2_query_x_c1": "202c3cb0ace2f565a7069bbcc78401a02cbf11c210efdb1b851828e7b3f48e5e",
+    "b_g2_query_y_c0": "f8afb6ad88bc5fee62be05de1eda099b24d75437433ab7e7b7955071117284ad",
+    "b_g2_query_y_c1": "e7d02013a6802d2502cba60c0728523ca49dfc6c6544fee0544e239d36d5778f",
+    "h_query_x": "366120bdf8ff318f77463627f696518e60e43691a4f35eacde88ec15d007964b",
+    "h_query_y": "235e3578ba7349b59158877d3cf05d69696d582a6dd1b6688cbbbd9373ff6c9e",
+    "l_query_x": "d3b023a4b7c0a6d46e34db32de5e440b777ed4cd6b27f90dd50987ec227dd402",
+    "l_query_y": "9baeb0c4f1c5248674b4d5dfa1a32ca13c4d8e1aeb6a4a902c29ab1667588147",
+}
+KEY64_VK = (
+    "af731432e3dd1d75e617cd674d730f3594c52a06d69ebcf746ef667908539dde7258f58cb103914a01f94094"
+    "ceb0c20be59f6b33d7ec612854e857bd7ee35503b56877fc51a9de15c585089b437cfa6bed54fa8aa4952b75"
+    "e7052f274629680439631df443e78184c7f816e2673e08295e56972aaa3333688fba32428ba5a674f69e5815"
+    "b1de3e187a7ab997cf0d220eef59ca1a4eee27a713df3a9c0b114d1fc973d2cbf92d7121369d8d42e35e2699"
+    "e6073d29ff3af78de9de0135e44cd505f62964beeae0614d7a7dd42b6936f533274ccc5cd4738eba84486bfe"
+    "9a4b17e8a5c6ad79a28819d17d10555a8745340394ec618c64b13a95e7eedd92bf34b8c12d7d496273452aa5"
+    "215b72d408e5c1957d4b19e716c8e67edd724d9a188640024d7d2593a89e824ea4e4db0318a55fdb1e26fc68"
+    "e645cea22bdced02e2478d55a0a5fc4fd25a2764e806f59d18f0429403000000000000005a0ff627fc39763d"
+    "4b626f453430b8c2da63c9930febc18aa26146f3e47155a74d4593ce6a021321fd3105a76cb43a117e4da4f7"
+    "3839ab7abeba5faba95fa8ec80ff350e4155821a9a99246264cb44d93e988f6c6c254bb17af27fe4288ef503"
+    "08df9bbd26f747038d1d2936d7dfe2f37ace856533b30b6c84c8fdf17e9a9f9d4e1d84a415b75b2cdfc5b703"
+    "ec42b38b"
+)
+KEY64_BETA_G1 = ("ca311325ffa4ed99605dfe61020c5428002829b4da1b4f2921f1bf60667524f3"
+                 "b1c1f00cdcbcacaa069895c92111d698")
+KEY64_DELTA_G1 = ("89020f1486e7c8ad1a80d2331aa421b2d64e6e69279a8fc53a10da3f6603fc00"
+                  "9ece19657d2811005d91ea42f6acf202")
+
+
+def _bench_cli() -> dict:
+    """python3 bench_cuda.py as users run it (16 members, the committed key):
+    its last stdout line, checked; artifacts/ must be unchanged."""
+    import re
+
+    art = os.path.join(REPO, "artifacts")
+    before = _listing(art)
+    _release_card()
+    env = {k: v for k, v in os.environ.items() if k != "BENCH_MEMBERS"}
+    t = time.time()
+    res = subprocess.run([sys.executable, os.path.join(REPO, "bench_cuda.py")],
+                         capture_output=True, text=True, env=env, cwd=REPO, timeout=600)
+    wall_s = time.time() - t
+    log(f"python3 bench_cuda.py: exit {res.returncode} in {wall_s:.1f}s")
+    if res.returncode != 0:
+        raise AssertionError(f"bench_cuda.py exited {res.returncode}:\n{res.stdout[-2000:]}\n"
+                             f"{res.stderr[-4000:]}")
+    line = json.loads(res.stdout.strip().splitlines()[-1])
+    if list(line) != ["metric", "value", "unit", "vs_baseline", "device"]:
+        raise AssertionError(f"bench_cuda.py's line has the keys {list(line)}")
+    if (line["metric"] != "groth16_bls12_381_prove_16members" or not line["value"] > 0
+            or line["unit"] != "s" or line["vs_baseline"] != round(0.300 / line["value"], 3)
+            or line["device"] != RESULTS.get("smi", line["device"])):
+        raise AssertionError(f"bench_cuda.py's line is wrong: {line}")
+    warm = re.findall(r"^# \[warm\] (\w+) ready in \d+\.\ds$", res.stderr, re.M)
+    if warm != ["kernels", "tables"] or "proving key loaded from checkpoint" not in res.stderr:
+        raise AssertionError(f"bench_cuda.py's stderr lacks the key load or the warm lines:\n"
+                             f"{res.stderr[-4000:]}")
+    if _listing(art) != before:
+        raise AssertionError("bench_cuda.py wrote into artifacts/ although the key exists")
+    log(f"bench_cuda.py: {line}; warm lines {warm}; artifacts/ unchanged")
+    return dict(line, wall_s=wall_s)
+
+
+def _bench_setup_branch() -> dict:
+    """bench_cuda.main at BENCH_SETUP_MEMBERS with setup on the card into a
+    temporary directory (K3, K2, K1 and the finish must launch; main raises
+    unless the proof verifies), then again over that directory (the key
+    loads, nothing is written, no K3).  Then setup from the committed key's
+    rng state must give its query arrays and vk."""
+    import hashlib
+    import tempfile
+
+    import numpy as np
+
+    import bench_cuda
+    from zkmember_tpu_torch import kernels
+    from zkmember_tpu_torch.snark import groth16
+    from zkmember_tpu_torch.utils import checkpoint
+    from zkmember_tpu_torch.utils import rng as frng
+    from zkmember_tpu_torch.utils import serialize as ser
+
+    n = BENCH_SETUP_MEMBERS
+    need = ("mont_mul_bm", "mont_mul", "select_reduce_fp", "select_reduce_fp2", "msm_finish_fp",
+            "msm_finish_fp2")
+    out = {}
+    with tempfile.TemporaryDirectory(dir=REPO, prefix=".bench_") as tmp:
+        for run in ("setup", "load"):
+            kernels.reset_launches()
+            t = time.time()
+            res = bench_cuda.main(members=n, device="cuda", checkpoint_dir=tmp)
+            res.update(wall_s=time.time() - t, launches=dict(kernels.LAUNCHES))
+            out[run] = res
+            if run == "setup":
+                saved = _listing(tmp)
+        if [f for f, _ in saved] != [f"groth16_bls12_381_{n}.json", f"groth16_bls12_381_{n}.npz"]:
+            raise AssertionError(f"the setup branch saved {saved}")
+        if _listing(tmp) != saved or out["load"]["setup_s"] is not None:
+            raise AssertionError("the second bench run did not load the saved key, or wrote")
+    missing = [k for k in need if out["setup"]["launches"][k] == 0]
+    if missing or out["setup"]["setup_s"] is None:
+        raise AssertionError(f"the setup branch launched no {missing}: {out['setup']}")
+    if out["load"]["launches"]["mont_mul_bm"] or any(
+            out["load"]["launches"][k] == 0 for k in need[1:]):
+        raise AssertionError(f"the loading run's launches are wrong: {out['load']['launches']}")
+    log(f"bench_cuda.main({n} members): setup {out['setup']['setup_s']:.2f}s, proof "
+        f"{out['setup']['value']}s, verified; again over the saved key: loaded, proof "
+        f"{out['load']['value']}s, nothing written")
+
+    # the committed key: setup from the rng state that made it
+    cs, _, _ = _membership_circuit(n)
+    rng = frng.test_rng()
+    for _ in range(KEY64_DRAWS):
+        frng.nonzero_field_element(rng, groth16.pairing_config("bls12_381").r)
+    t = time.time()
+    pk, vk = groth16.setup(cs, "bls12_381", rng, device="cuda")
+    got = {k: hashlib.sha256(np.ascontiguousarray(a, dtype=np.uint32).tobytes()).hexdigest()
+           for k, a in checkpoint.query_arrays(pk).items()}
+    if got != KEY64_SHA256:
+        raise AssertionError(f"setup's query arrays differ from the committed {n}-member key's: "
+                             f"{sorted(k for k in KEY64_SHA256 if got.get(k) != KEY64_SHA256[k])}")
+    g1 = groth16.pairing_config("bls12_381").mod.G1
+    if (ser.vk_to_bytes(vk).hex() != KEY64_VK
+            or ser.sw_point_to_bytes(g1, pk.beta_g1).hex() != KEY64_BETA_G1
+            or ser.sw_point_to_bytes(g1, pk.delta_g1).hex() != KEY64_DELTA_G1):
+        raise AssertionError(f"setup's vk, beta or delta differs from the committed {n}-member key's")
+    out["committed_key_setup_s"] = time.time() - t
+    log(f"setup from the committed {n}-member key's rng state reproduces its 12 query arrays, "
+        f"vk, beta_g1 and delta_g1 ({out['committed_key_setup_s']:.2f}s)")
+    return out
+
+
+def phase_bench():
+    RESULTS["bench"] = {"cli": _bench_cli(), f"main_{BENCH_SETUP_MEMBERS}": _bench_setup_branch()}
+
+
+def phase_bench_sweep():
+    """bench_cuda.main at each of bench.py's sizes: the committed key where the
+    card's copy has it, else setup into a temporary directory."""
+    import tempfile
+
+    import bench_cuda
+    from zkmember_tpu_torch import kernels
+
+    art = os.path.join(REPO, "artifacts")
+    rows = []
+    with tempfile.TemporaryDirectory(dir=REPO, prefix=".bench_") as tmp:
+        for n in BENCH_SWEEP:
+            _release_card()
+            have = os.path.exists(os.path.join(art, f"groth16_bls12_381_{n}.json"))
+            kernels.reset_launches()
+            t = time.time()
+            res = bench_cuda.main(members=n, device="cuda", checkpoint_dir=art if have else tmp)
+            row = {"members": n, "value": res["value"], "vs_baseline": res["vs_baseline"],
+                   "setup_s": res["setup_s"], "M": res["M"], "wall_s": time.time() - t,
+                   "launches": dict(kernels.LAUNCHES), "device": res["device"]}
+            print(json.dumps({"bench_sweep": row}), flush=True)
+            rows.append(row)
+    RESULTS["bench_sweep"] = rows
 
 
 HASH_MEMBERS = 1024  # the reference harness's largest registrar (DEFAULT_SIZES)
@@ -3087,7 +3276,15 @@ def phase_marlin(np_rng):
 
 
 PHASES = ("device", "build", "k2", "k1", "prove", "options", "multi", "k3", "setup", "prove_v1",
-          "cli", "prove_batch", "harness", "hash", "scale", "bw6", "marlin")
+          "cli", "prove_batch", "harness", "bench", "hash", "scale", "bw6", "marlin")
+
+
+def bench_line() -> str:
+    """The bench phase's stdout line."""
+    return json.dumps({
+        "metric": "bench_cuda_groth16_bls12_381", **RESULTS["bench"],
+        "device": RESULTS["device"], "nvidia_smi": RESULTS["smi"],
+    })
 
 
 def hash_line() -> str:
@@ -3175,6 +3372,10 @@ def main() -> int:
             phase_prove_batch(np_rng)
         elif name == "harness":
             phase_harness()
+        elif name == "bench":
+            phase_bench()
+        elif name == "bench_sweep":
+            phase_bench_sweep()
         elif name == "hash":
             phase_hash(np_rng)
         elif name == "scale":
@@ -3220,6 +3421,7 @@ def main() -> int:
             "metric": "groth16_bw6_761_pedersen761_16members", **RESULTS["bw6"],
             "device": RESULTS["device"], "nvidia_smi": RESULTS["smi"],
         }))
+        print(bench_line())
         print(hash_line())
         print(marlin_line())
         print(json.dumps({"trace": TRACES}))
@@ -3314,6 +3516,8 @@ def main() -> int:
             print(options_line())
         if "multi" in RESULTS:
             print(multi_line())
+        if "bench" in RESULTS:
+            print(bench_line())
         if "hash" in RESULTS:
             print(hash_line())
         if "marlin" in RESULTS:

@@ -9,7 +9,9 @@ loads ``entry``), and then reports what it imported.  Another fresh
 interpreter runs a sharded MSM on a 2-rank gloo world (``parallel.dist``),
 each rank asserting that it imported nothing of JAX.  An AST scan checks every
 module of the package (KZG, Marlin, the transcript, the polynomial
-helpers and the ``parallel`` subpackage among them) and chip_smoke.py.
+helpers and the ``parallel`` subpackage among them), chip_smoke.py and
+bench_cuda.py; a fresh interpreter that imports bench_cuda (the port's
+bench.py) has imported nothing of JAX.
 """
 
 import ast
@@ -124,6 +126,18 @@ def test_sharded_msm_ranks_import_no_jax(tmp_path):
     assert got == {"rank": 0, "equal": True, "modules": []}
 
 
+def test_bench_cuda_imports_no_jax(tmp_path):
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = REPO
+    code = ("import json, sys, bench_cuda; print(json.dumps(sorted(m for m in sys.modules "
+            "if m == 'jax' or m.startswith(('jax.', 'jaxlib', 'zkmember_tpu.')) "
+            "or m == 'zkmember_tpu')))")
+    res = subprocess.run([sys.executable, "-c", code], cwd=str(tmp_path), env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr[-4000:]
+    assert json.loads(res.stdout.strip().splitlines()[-1]) == []
+
+
 def _is_forbidden(name: str) -> bool:
     return name == "jax" or name.startswith(("jax.", "jaxlib")) or name == "zkmember_tpu" \
         or name.startswith("zkmember_tpu.")
@@ -164,6 +178,7 @@ def _sources():
             if f.endswith(".py"):
                 yield os.path.join(root, f)
     yield os.path.join(REPO, "chip_smoke.py")
+    yield os.path.join(REPO, "bench_cuda.py")
 
 
 @pytest.mark.parametrize("path", sorted(_sources()), ids=lambda p: os.path.relpath(p, REPO))

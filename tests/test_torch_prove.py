@@ -103,3 +103,55 @@ def test_toy_proof_equals_reference_and_verifies():
     )
     assert jgroth16.verify(vk, [out_val], as_ref)
     assert not jgroth16.verify(vk, [(out_val + 1) % jbls.R], as_ref)
+
+
+def _toy_keys(**opts):
+    cs, _ = cube_circuit(ConstraintSystem, g, bls.Fr, bls.R)
+    pk, _ = groth16.setup(cs, "bls12_381", frng.test_rng(), host=True)
+    return prove_lm.Groth16KeysLM(pk, "cpu", cs=cs, **opts)
+
+
+def _warm_lines(err: str, tag: str) -> list:
+    """The names of the `# [<tag>] <name> ready in <s>s` lines of stderr."""
+    import re
+
+    lines = err.splitlines()
+    names = [m.group(1) for m in (re.fullmatch(rf"# \[{tag}\] (\w+) ready in \d+\.\ds", ln)
+                                  for ln in lines) if m]
+    assert len(names) == len(lines), lines
+    return names
+
+
+@pytest.mark.parametrize("verbose", [True, False])
+def test_warm_logs_each_step_when_verbose(capsys, verbose):
+    """warm(keys, verbose=True) logs the kernel step and the table build in the
+    reference's format (zkmember_tpu/snark/prove_lm.py:298-300); verbose=False
+    prints nothing; the tables are resident either way."""
+    keys = _toy_keys()
+    capsys.readouterr()
+    prove_lm.warm(keys, verbose=verbose)
+    out, err = capsys.readouterr()
+    assert out == ""
+    assert _warm_lines(err, "warm") == (["kernels", "tables"] if verbose else [])
+    assert keys._g1_tab is not None and keys._g2_tab is not None
+
+
+def _warm_sharded_rank(mesh, keys, verbose):
+    prove_lm.warm_sharded(keys, mesh, verbose=verbose)
+    return mesh.shape["msm"]
+
+
+@pytest.mark.parametrize("verbose", [True, False])
+def test_warm_sharded_logs_each_msm_class_when_verbose(capsys, verbose):
+    """warm_sharded over a one-rank gloo mesh logs one `# [warm-sh]` line an MSM
+    class it runs, the reference's names (G1's stacked rows, G2's and, for a
+    merge_bool=False key, both boolean classes); verbose=False prints nothing."""
+    from zkmember_tpu_torch.parallel import dist
+
+    keys = _toy_keys(merge_bool=False)
+    assert keys.has_bool
+    capsys.readouterr()
+    assert dist.run_ranks(_warm_sharded_rank, 1, device="cpu", args=(keys, verbose)) == 1
+    out, err = capsys.readouterr()
+    assert out == ""
+    assert _warm_lines(err, "warm-sh") == (["g1x4", "g2", "g1bool", "g2bool"] if verbose else [])

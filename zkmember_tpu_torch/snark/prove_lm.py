@@ -32,6 +32,9 @@ proof.  Such a key is built with ``min_lanes`` = the axis size.
 
 from __future__ import annotations
 
+import sys
+import time
+
 import numpy as np
 import torch
 
@@ -303,14 +306,27 @@ def _to_dev(arr: np.ndarray, device) -> torch.Tensor:
     return torch.as_tensor(np.asarray(arr).astype(np.int64), dtype=torch.int32, device=device)
 
 
-def warm(keys: Groth16KeysLM):
-    """Build the CUDA kernels (on a card) and the Straus tables the key
-    keeps; returns when both are resident."""
-    if keys.device.type == "cuda":
-        kernels.library()
-    keys.build_tables()
-    if keys.device.type == "cuda":
-        torch.cuda.synchronize(keys.device)
+def _warm_step(verbose: bool, tag: str, name: str, dev, fn) -> None:
+    """Run one warm-up step; with `verbose`, log its seconds to stderr in the
+    reference's format (``# [<tag>] <name> ready in <s>s``), the card
+    synchronized before the clock is read."""
+    t0 = time.time()
+    fn()
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    if verbose:
+        print(f"# [{tag}] {name} ready in {time.time() - t0:.1f}s", file=sys.stderr, flush=True)
+
+
+def warm(keys: Groth16KeysLM, verbose: bool = False):
+    """Build the CUDA kernels (on a card; nothing to build for the CPU's
+    plain versions) and the Straus tables the key keeps; returns when both
+    are resident.  verbose: one ``# [warm] ... ready in ...s`` line a step
+    on stderr, as the reference's ``warm`` logs."""
+    dev = keys.device
+    _warm_step(verbose, "warm", "kernels", dev,
+               kernels.library if dev.type == "cuda" else (lambda: None))
+    _warm_step(verbose, "warm", "tables", dev, keys.build_tables)
 
 
 def _leaves(x):
@@ -325,12 +341,14 @@ def _unflatten(x, it):
     return next(it)
 
 
-def warm_sharded(keys: Groth16KeysLM, mesh):
+def warm_sharded(keys: Groth16KeysLM, mesh, verbose: bool = False):
     """The sharded counterpart of ``warm``: build the CUDA kernels (on a
     card) and run each sharded MSM class of the key once on zero scalars
     (G1's rows, G2's, and the boolean ones of a ``merge_bool=False`` key),
     so the first proof over `mesh` pays no first-call costs.  Eager
-    PyTorch compiles nothing, so nothing runs in threads."""
+    PyTorch compiles nothing, so nothing runs in threads.  verbose: one
+    ``# [warm-sh] <class> ready in ...s`` line an MSM class on stderr, the
+    reference's names (g1x4, g2, g1bool, g2bool)."""
     _check_mesh_lanes(keys, mesh)
     dev = keys.device
     if dev.type == "cuda":
@@ -340,17 +358,23 @@ def warm_sharded(keys: Groth16KeysLM, mesh):
     def zeros(*shape):
         return torch.zeros(shape, dtype=torch.int32, device=dev)
 
-    straus.sharded_msm_program(keys.ops1, mesh, keys.g1_X, keys.g1_Y, zeros(4, nl, keys.B1),
-                               keys.nwin, keys.g1_tab)
-    straus.sharded_msm_program(keys.ops2, mesh, keys.g2_X, keys.g2_Y, zeros(nl, keys.B2g),
-                               keys.nwin, keys.g2_tab)
+    jobs = [
+        ("g1x4", lambda: straus.sharded_msm_program(
+            keys.ops1, mesh, keys.g1_X, keys.g1_Y, zeros(4, nl, keys.B1), keys.nwin,
+            keys.g1_tab)),
+        ("g2", lambda: straus.sharded_msm_program(
+            keys.ops2, mesh, keys.g2_X, keys.g2_Y, zeros(nl, keys.B2g), keys.nwin,
+            keys.g2_tab)),
+    ]
     if keys.has_bool:
-        straus.sharded_bool_msm_program(keys.ops1, mesh, keys.g1b_X, keys.g1b_Y,
-                                        zeros(3, keys.Bb))
-        straus.sharded_bool_msm_program(keys.ops2, mesh, keys.g2b_X, keys.g2b_Y,
-                                        zeros(keys.B2b))
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
+        jobs += [
+            ("g1bool", lambda: straus.sharded_bool_msm_program(
+                keys.ops1, mesh, keys.g1b_X, keys.g1b_Y, zeros(3, keys.Bb))),
+            ("g2bool", lambda: straus.sharded_bool_msm_program(
+                keys.ops2, mesh, keys.g2b_X, keys.g2b_Y, zeros(keys.B2b))),
+        ]
+    for name, fn in jobs:
+        _warm_step(verbose, "warm-sh", name, dev, fn)
 
 
 def _check_mesh_lanes(keys: Groth16KeysLM, mesh) -> None:
